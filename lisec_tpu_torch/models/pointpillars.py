@@ -1,0 +1,158 @@
+"""PointPillars over the fused pillar encoder (port of
+``lisec_tpu/models/pointpillars.py``: ``BEVBackbone``, ``AnchorHead``,
+``PointPillarsFused``), NCHW.
+
+Canonical geometry: range [(0, -39.68, -3), (69.12, 39.68, 1)], pillar
+0.16 x 0.16 -> 432 x 496 BEV grid; PFN 9 -> 64; a 3-block strided conv
+backbone (64/128/256) with an upsample-concat neck (3 x 128); an
+SSD-style 1x1 anchor head.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lisec_tpu_torch.models.common import ConvBNRelu
+from lisec_tpu_torch.models.pillar_encoder import FusedPillarEncoder
+
+# Focal-loss prior: bias = -log((1 - pi) / pi) with pi = 0.01.
+CLS_BIAS_INIT = -4.595
+
+
+class BEVBackbone(nn.Module):
+    """(B, C, H, W) -> (B, sum(up_filters), H/2, W/2).
+
+    ``layers`` holds the ConvBNRelu blocks in flax's creation order (per
+    block: the strided conv, ``layer_nums[i]`` convs, the up branch), so
+    index i is flax's ``ConvBNRelu_i``."""
+
+    def __init__(self, in_channels: int,
+                 layer_nums: Sequence[int] = (3, 5, 5),
+                 strides: Sequence[int] = (2, 2, 2),
+                 filters: Sequence[int] = (64, 128, 256),
+                 up_strides: Sequence[int] = (1, 2, 4),
+                 up_filters: Sequence[int] = (128, 128, 128),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layer_nums = tuple(layer_nums)
+        self.layers = nn.ModuleList()
+        cin = in_channels
+        for n, s, f, u, uf in zip(layer_nums, strides, filters, up_strides,
+                                  up_filters):
+            self.layers.append(ConvBNRelu(cin, f, 3, s, dtype=dtype))
+            for _ in range(n):
+                self.layers.append(ConvBNRelu(f, f, 3, dtype=dtype))
+            if u > 1:
+                self.layers.append(ConvBNRelu(f, uf, u, u, transpose=True,
+                                              dtype=dtype))
+            else:
+                self.layers.append(ConvBNRelu(f, uf, 3, dtype=dtype))
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ups = []
+        i = 0
+        for n in self.layer_nums:
+            for layer in self.layers[i:i + n + 1]:
+                x = layer(x)
+            ups.append(self.layers[i + n + 1](x))
+            i += n + 2
+        return torch.cat(ups, dim=1)
+
+
+class Conv1x1(nn.Module):
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(features, in_features, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+
+class AnchorHead(nn.Module):
+    """1x1 conv head: class logits, box deltas, direction logits.
+
+    Outputs are (B, H * W * A, .) in (y, x, anchor) order, the anchor
+    generator's layout, and float32."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 num_anchors_per_cell: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_anchors_per_cell = num_anchors_per_cell
+        self.dtype = dtype
+        a = num_anchors_per_cell
+        self.cls = Conv1x1(in_channels, a * num_classes)
+        self.box = Conv1x1(in_channels, a * 7)
+        self.dir = Conv1x1(in_channels, a * 2)
+        with torch.no_grad():
+            self.cls.bias.fill_(CLS_BIAS_INIT)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        b, _, h, w = x.shape
+        a = self.num_anchors_per_cell
+        x = x.to(self.dtype)
+
+        def run(conv, k):
+            y = F.conv2d(x, conv.weight.to(self.dtype),
+                         conv.bias.to(self.dtype))
+            # NHWC before the reshape keeps the (y, x, anchor) order.
+            return y.permute(0, 2, 3, 1).reshape(b, h * w * a, k).float()
+        return {"cls": run(self.cls, self.num_classes),
+                "box": run(self.box, 7), "dir": run(self.dir, 2)}
+
+
+class PointPillarsFused(nn.Module):
+    """Raw padded points (B, N, 4) + mask (B, N) in, per-anchor
+    predictions out."""
+
+    def __init__(self, num_classes: int, grid_size: Tuple[int, int, int],
+                 voxel_size: Tuple[float, float],
+                 pc_range: Tuple[float, ...], num_anchors_per_cell: int,
+                 pfn_filters: int = 64,
+                 backbone_layers: Sequence[int] = (3, 5, 5),
+                 backbone_filters: Sequence[int] = (64, 128, 256),
+                 backbone_strides: Sequence[int] = (2, 2, 2),
+                 backbone_up_strides: Sequence[int] = (1, 2, 4),
+                 backbone_up_filters: Sequence[int] = (128, 128, 128),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.grid = (grid_size[0], grid_size[1])
+        self.encoder = FusedPillarEncoder(
+            num_filters=pfn_filters, pc_range=pc_range,
+            voxel_size=voxel_size, grid=self.grid, dtype=dtype)
+        self.backbone = BEVBackbone(
+            pfn_filters, backbone_layers, backbone_strides,
+            backbone_filters, backbone_up_strides, backbone_up_filters,
+            dtype=dtype)
+        self.head = AnchorHead(sum(backbone_up_filters), num_classes,
+                               num_anchors_per_cell, dtype=dtype)
+
+    def forward(self, points: torch.Tensor,
+                point_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        nx, ny = self.grid
+        canvas = self.encoder(points, point_mask)          # (B, ny*nx, C)
+        b, _, c = canvas.shape
+        # An NHWC view: channels-last memory, which cuDNN takes as is.
+        x = canvas.view(b, ny, nx, c).permute(0, 3, 1, 2)
+        return self.head(self.backbone(x))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random kernels, normal with variance 1 / fan_in (flax's
+        lecun-normal without its truncation); BN, biases and the head's
+        class prior keep their constructor values."""
+        for name, p in self.named_parameters():
+            if p.dim() < 2:
+                continue
+            module = self.get_submodule(name.rsplit(".", 1)[0])
+            if module is self.encoder:                     # (9, C)
+                fan_in = p.shape[0]
+            elif getattr(module, "transpose", False):      # (in, out, k, k)
+                fan_in = p.shape[0] * p.shape[2] * p.shape[3]
+            else:                                          # (out, in, k, k)
+                fan_in = p[0].numel()
+            p.normal_(0.0, fan_in ** -0.5, generator=generator)

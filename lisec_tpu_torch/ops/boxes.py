@@ -1,0 +1,44 @@
+"""Box decoding and BEV corners (port of ``lisec_tpu/ops/boxes.py``).
+
+7-DoF boxes ``(x, y, z, l, w, h, yaw)`` with (x, y, z) the box centre,
+l along the heading and yaw about +z from +x; residuals follow the
+diagonal-normalised SECOND/PointPillars coding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Residuals (..., 7) against anchors (..., 7) -> boxes (..., 7)."""
+    xa, ya, za, la, wa, ha, ra = anchors.unbind(-1)
+    tx, ty, tz, tl, tw, th, tr = deltas.unbind(-1)
+    # Clamp size residuals so untrained or garbage logits cannot decode
+    # to inf-sized boxes (exp overflow) downstream in NMS.
+    tl, tw, th = (t.clamp(-10.0, 4.0) for t in (tl, tw, th))
+    diag = torch.sqrt(la * la + wa * wa)
+    return torch.stack([
+        tx * diag + xa,
+        ty * diag + ya,
+        tz * ha + za,
+        torch.exp(tl) * la,
+        torch.exp(tw) * wa,
+        torch.exp(th) * ha,
+        tr + ra,
+    ], dim=-1)
+
+
+def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
+    """BEV corners of yawed boxes: (..., 7) -> (..., 4, 2), counter-
+    clockwise from front-left in the box frame: (+l/2, +w/2),
+    (-l/2, +w/2), (-l/2, -w/2), (+l/2, -w/2)."""
+    x, y = boxes[..., 0], boxes[..., 1]
+    l, w = boxes[..., 3], boxes[..., 4]
+    yaw = boxes[..., 6]
+    dx = torch.stack([l / 2, -l / 2, -l / 2, l / 2], dim=-1)
+    dy = torch.stack([w / 2, w / 2, -w / 2, -w / 2], dim=-1)
+    c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
+    cx = x[..., None] + dx * c - dy * s
+    cy = y[..., None] + dx * s + dy * c
+    return torch.stack([cx, cy], dim=-1)
