@@ -5,19 +5,31 @@
 
 Phases, each of which fails the run (nonzero exit) when it goes wrong:
 
-1. build every CUDA kernel of the main path from ``lisec_tpu_torch/csrc``
-   with nvcc for sm_90a;
-2. hold each kernel against its plain PyTorch version on the card, on
-   random clouds at KITTI geometry plus edge cases;
-3. drive the main path: full-width PointPillars inference
+1. build every CUDA kernel of the main paths from
+   ``lisec_tpu_torch/csrc`` with nvcc for sm_90a, all at once;
+2. hold each kernel against its plain PyTorch version on the card, at
+   the main paths' shapes plus edge cases: the fused encoder on random
+   clouds at KITTI geometry; ``segment_paint`` in its three channel
+   splits, ``segment_unpaint``, and ``segment_max_sorted`` forward and
+   backward (f32 inputs, and bf16-valued inputs full of ties);
+3. drive the inference path: full-width PointPillars inference
    (``configs/pointpillars_kitti.yaml``, bf16) with the trained snapshot
    ``weights/pointpillars_fixture_hard.npz`` on 8 ray-cast scenes, with
    the launch counts set to 0 just before and read just after; check the
    outputs, and that the kernel path and the plain encoder agree; check
    the small ``pointpillars_tiny`` predict on the card against the CPU;
-4. time the predict at batch 8 and 32, and the kernel, its plain version
-   and its glue at the main path's shapes, with CUDA events;
-5. print the ``{"kernels": [...]}`` line, the card's name and power
+4. drive the training path: full-width PointPillars train steps
+   (``configs/pointpillars_fixture_hard_conv.yaml``, bf16, batch 4,
+   adamw + onecycle + clip) from the same snapshot on ray-cast scenes,
+   the launch counts again set to 0 just before and read just after;
+   check the loss, gradients, parameters and running statistics; take
+   the first step's loss and gradients again with the paint and unpaint
+   wrappers swapped for their plain versions; then a short
+   ``lisec_tpu_torch.train(cfg)`` from seed initialisation;
+5. time the predict at batch 8 and 32, the train step and its parts at
+   batch 4, and every kernel, its plain version and its glue at the main
+   paths' shapes, with CUDA events;
+6. print the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the rest of the repository; without either it
@@ -25,14 +37,19 @@ exits nonzero before printing any result.
 """
 
 import json
+import contextlib
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KITTI_CFG = os.path.join(ROOT, "configs", "pointpillars_kitti.yaml")
 TINY_CFG = os.path.join(ROOT, "configs", "pointpillars_tiny.yaml")
+TRAIN_CFG = os.path.join(ROOT, "configs",
+                         "pointpillars_fixture_hard_conv.yaml")
 WEIGHTS = os.path.join(ROOT, "weights", "pointpillars_fixture_hard.npz")
+KERNEL_SOURCES = ("encoder_kernel", "segment_paint", "segment_unpaint")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 
@@ -68,12 +85,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 # -- phase 1 ----------------------------------------------------------------
 
 def phase_build():
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from lisec_tpu_torch.ops.cuda import build
-    res = build.build("encoder_kernel")
-    ptxas = [ln.strip() for ln in res["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", kernel="encoder_kernel", seconds=res["seconds"],
-         ptxas=ptxas)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        results = list(pool.map(build.build, KERNEL_SOURCES))
+    for name, res in zip(KERNEL_SOURCES, results):
+        ptxas = [ln.strip() for ln in res["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build", kernel=name, seconds=res["seconds"], ptxas=ptxas)
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -145,6 +165,188 @@ def phase_kernel_check(gen):
         emit("kernel_check", kernel="pillar_canvas_fused",
              dtype=str(dtype), shape=list(got.shape), max_abs_err=err,
              nonempty_cells=int((ref != 0).any(-1).sum()))
+
+
+# The three channel splits the train path paints with, at its full-width
+# shapes: (rows per cloud, channels, max channels, table rows).
+NCELLS = 432 * 496
+PAINT_SPLITS = {
+    "stats": dict(n=32768, c=4, num_max=0, num_cells=NCELLS),
+    "segmax": dict(n=32768, c=65, num_max=64, num_cells=NCELLS),
+    "assigner": dict(n=131072, c=3, num_max=2, num_cells=NCELLS // 2),
+}
+
+
+def edge_case_ids(n, num_cells, gen):
+    """(4, N) int32 ascending ids: cloud 0 random over the table with an
+    invalid tail (some ids negative), cloud 1 all rows in the last cell,
+    cloud 2 all rows invalid (an empty table), cloud 3 a dense block of
+    cells with long segments plus the last cell."""
+    import torch
+    ids = torch.empty((4, n), dtype=torch.int64)
+    ids[0] = torch.randint(-50, num_cells + num_cells // 8, (n,),
+                           generator=gen)
+    ids[1] = num_cells - 1
+    ids[2] = num_cells + torch.randint(0, 9, (n,), generator=gen)
+    ids[3] = torch.randint(1000, 1400, (n,), generator=gen)
+    ids[3, :7] = num_cells - 1
+    return torch.sort(ids, dim=1).values.to(torch.int32)
+
+
+def check_paint(got, ref, num_max, what):
+    """Max channels bit-equal. Sum channels: kernel and plain version
+    both add in f64 and round to f32 once, the kernel in row order, the
+    plain version's ``index_add_`` in the order its atomics land, so they
+    may differ by the last f32 bit where the f64 sums straddle a rounding
+    point: |d| <= 2^-22 |ref| + 1e-8. Returns (max |d|, elements whose
+    bits differ)."""
+    import torch
+    if not torch.equal(got[..., :num_max], ref[..., :num_max]):
+        raise AssertionError(f"{what}: max channels differ")
+    d = (got[..., num_max:] - ref[..., num_max:]).abs()
+    if d.numel() == 0:
+        return 0.0, 0
+    tol = 2.0 ** -22 * ref[..., num_max:].abs() + 1e-8
+    if (d > tol).any():
+        raise AssertionError(f"{what}: {int((d > tol).sum())} sums off, "
+                             f"max |d| {float(d.max())}")
+    return float(d.max()), int((d != 0).sum())
+
+
+def phase_segment_kernel_check(gen):
+    """segment_paint, segment_unpaint and segment_max_sorted on the card
+    against their plain versions, at the train path's shapes and on edge
+    cases. Returns the largest |difference| seen for each kernel."""
+    import torch
+    from lisec_tpu_torch.ops import scatter
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    worst = {"segment_paint": 0.0, "segment_unpaint": 0.0}
+
+    for split, sh in PAINT_SPLITS.items():
+        n, c, num_max, nc = sh["n"], sh["c"], sh["num_max"], sh["num_cells"]
+        cases = {"full_width": (edge_case_ids(n, nc, gen), nc)}
+        # Every cell of a small table occupied (more rows than cells).
+        small = torch.sort(torch.randint(0, 1000, (4, 8192), generator=gen),
+                           dim=1).values.to(torch.int32)
+        small[:, :1000] = torch.arange(1000, dtype=torch.int32)
+        cases["every_cell_occupied"] = (torch.sort(small, 1).values, 1000)
+        for case, (ids, cells) in cases.items():
+            vals = torch.randn(ids.shape + (c,), generator=gen)
+            vals[..., c - 1] = 1.0                   # the callers' ones
+            vals, ids = vals.cuda(), ids.cuda()
+            got = sp.segment_paint(vals, ids, num_cells=cells,
+                                   num_max=num_max)
+            torch.cuda.synchronize()
+            ref = sp.segment_paint_reference(vals, ids, num_cells=cells,
+                                             num_max=num_max)
+            err, bits = check_paint(got, ref, num_max,
+                                    f"segment_paint {split} {case}")
+            again = sp.segment_paint(vals, ids, num_cells=cells,
+                                     num_max=num_max)
+            if not torch.equal(got, again):
+                raise AssertionError(f"segment_paint {split} {case}: two "
+                                     "runs differ")
+            # In two parts (as the segment max asks for its canvas and
+            # count): the same bits, each part dense.
+            head, tail = sp.segment_paint(vals, ids, num_cells=cells,
+                                          num_max=num_max, split=c - 1)
+            if not (torch.equal(head, got[..., :c - 1])
+                    and torch.equal(tail, got[..., c - 1:])
+                    and head.is_contiguous() and tail.is_contiguous()):
+                raise AssertionError(f"segment_paint {split} {case}: the "
+                                     "two-part table differs")
+            occupied = got[..., c - 1] > 0
+            if case == "every_cell_occupied" and not occupied.all():
+                raise AssertionError("every_cell_occupied: empty cells")
+            if case == "full_width" and (
+                    occupied[2].any() or int(occupied[1].sum()) != 1
+                    or not occupied[1, cells - 1]
+                    or not occupied[3, cells - 1]):
+                raise AssertionError(f"segment_paint {split}: edge clouds")
+            worst["segment_paint"] = max(worst["segment_paint"], err)
+            emit("kernel_check", kernel="segment_paint", split=split,
+                 case=case, shape=list(got.shape), num_max=num_max,
+                 max_channels="bit-equal", sum_max_abs_err=err,
+                 sum_elements_differing=bits,
+                 occupied_cells=int(occupied.sum()))
+
+    # segment_unpaint: the train path's tables (C = 64 and 4, the vector
+    # path) and a C that is no multiple of 4 (the scalar path); bit-equal,
+    # the zero rows of invalid ids included.
+    ids = edge_case_ids(32768, NCELLS, gen).cuda()
+    for c in (64, 4, 65):
+        table = torch.randn((4, NCELLS, c), generator=gen).cuda()
+        got = su.segment_unpaint(table, ids)
+        torch.cuda.synchronize()
+        ref = su.segment_unpaint_reference(table, ids)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"segment_unpaint C={c}: "
+                                 f"{int((got != ref).sum())} elements differ")
+        if got[2].any() or not got[1].any():
+            raise AssertionError("segment_unpaint: edge clouds")
+        emit("kernel_check", kernel="segment_unpaint",
+             table=list(table.shape), shape=list(got.shape),
+             max_abs_err=0.0, bit_equal=True)
+
+    # segment_max_sorted: the kernel Function against the same Function
+    # over the plain versions, value and gradient, bit-equal.
+    ids = edge_case_ids(32768, NCELLS, gen).cuda()
+    for name, h in (
+            ("f32", torch.randn((4, 32768, 64), generator=gen)),
+            ("bf16_ties", (torch.randint(0, 6, (4, 32768, 64), generator=gen)
+                           * 0.25).bfloat16())):
+        g = torch.randn((4, NCELLS, 64), generator=gen).cuda()
+        outs = []
+        for plain in (False, True):
+            hh = h.cuda().requires_grad_()
+            with torch.enable_grad(), (plain_segment_ops() if plain
+                                       else contextlib.nullcontext()):
+                canvas, count = scatter.segment_max_sorted(hh, ids, NCELLS)
+                (canvas * g).sum().backward()
+            torch.cuda.synchronize()
+            outs.append((canvas.detach(), count, hh.grad))
+        for what, a, b in zip(("canvas", "count", "grad"), *outs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"segment_max_sorted {name}: {what} "
+                                     "differs from the plain Function")
+        grad = outs[0][2].float()
+        # Rows that got a cotangent per (cell, channel) with one: ties
+        # take the whole cotangent each, so this exceeds 1 with ties.
+        takers = float((grad != 0).sum()) / max(
+            float(((outs[0][1] > 0)[..., None] & (g != 0)).sum()), 1.0)
+        emit("kernel_check", kernel="segment_max_sorted", inputs=name,
+             forward="bit-equal", backward="bit-equal",
+             rows_with_gradient_per_cell_channel=takers)
+    return worst
+
+
+@contextlib.contextmanager
+def swapped_segment_ops(paint, unpaint):
+    """Swap ``segment_paint`` and ``segment_unpaint`` in the modules that
+    call them, here only: the package has no switch on the card."""
+    from lisec_tpu_torch.models import pillar_encoder
+    from lisec_tpu_torch.ops import scatter
+    from lisec_tpu_torch.training import assigner
+    new = {"segment_paint": paint, "segment_unpaint": unpaint}
+    saved = [(mod, name, getattr(mod, name))
+             for mod in (pillar_encoder, scatter, assigner)
+             for name in new if hasattr(mod, name)]
+    for mod, name, _ in saved:
+        setattr(mod, name, new[name])
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def plain_segment_ops():
+    """The callers on the kernels' plain PyTorch versions."""
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    return swapped_segment_ops(sp.segment_paint_reference,
+                               su.segment_unpaint_reference)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -258,7 +460,288 @@ def phase_tiny_vs_cpu():
     emit("tiny_vs_cpu", kept_per_cloud=outs[0]["valid"].sum(1).tolist())
 
 
-# -- phase 4 ----------------------------------------------------------------
+# -- phase 4: the training path ---------------------------------------------
+
+TRAIN_STEPS = 3
+
+
+def train_config(num_steps, log_every=1):
+    """The full-width training config; the overrides are no widths."""
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    return apply_overrides(load_config(TRAIN_CFG), [
+        "data.augment.enabled=false", 'train.ckpt_dir=""',
+        f"train.num_steps={num_steps}", f"train.log_every={log_every}"])
+
+
+def segment_launches():
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    return {"segment_paint": sp.LAUNCHES, "segment_unpaint": su.LAUNCHES}
+
+
+def zero_segment_launches():
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    sp.LAUNCHES = su.LAUNCHES = 0
+
+
+def loss_and_grads(pipe, batch):
+    import torch
+    pipe.model.train()
+    pipe.optimizer.zero_grad()
+    with torch.enable_grad():
+        loss, aux = pipe.loss(pipe.device_batch(batch))
+        loss.backward()
+    torch.cuda.synchronize()
+    return (loss.detach(), aux["num_pos"].detach(),
+            {n: p.grad.clone() for n, p in pipe.model.named_parameters()})
+
+
+def phase_train_path():
+    """Full-width train steps from the trained snapshot through
+    ``train_step``, their launch counts and checks; the first step's loss
+    and gradients again over the plain paint / unpaint; then a short
+    ``lisec_tpu_torch.train`` from seed initialisation."""
+    import torch
+    import lisec_tpu_torch
+    from lisec_tpu_torch.api import build_model
+    from lisec_tpu_torch.data.collate import make_batches
+    from lisec_tpu_torch.weights import load_weights_npz
+    cfg = train_config(TRAIN_STEPS)
+    pipe = build_model(cfg)
+    pipe.init_state(cfg.train.seed)
+    load_weights_npz(pipe.model, WEIGHTS)
+    batches = make_batches(pipe.make_dataset("train"), cfg.budget,
+                           cfg.train.batch_size, shuffle=True,
+                           seed=cfg.train.seed)
+    first = next(batches)
+    start = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+
+    zero_segment_launches()
+    with torch.enable_grad():
+        auxes = [pipe.train_step(first if i == 0 else next(batches))
+                 for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = segment_launches()
+    if launches["segment_paint"] < 3 * TRAIN_STEPS \
+            or launches["segment_unpaint"] < TRAIN_STEPS:
+        raise AssertionError(f"train path launches {launches} in "
+                             f"{TRAIN_STEPS} steps")
+    auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
+    for a in auxes:
+        if not all(v == v and abs(v) != float("inf") for v in a.values()):
+            raise AssertionError(f"train step: non-finite {a}")
+        if a["num_pos"] <= 0:
+            raise AssertionError("train step: no positive anchor")
+    stuck = []
+    for k, v in pipe.model.state_dict().items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"train step: non-finite {k}")
+        if torch.equal(v, start[k]):
+            stuck.append(k)
+    if stuck:
+        raise AssertionError(f"train step: unchanged after "
+                             f"{TRAIN_STEPS} steps: {stuck}")
+    if pipe.step != TRAIN_STEPS:
+        raise AssertionError(f"optimizer count {pipe.step}")
+    emit("train_path", config="pointpillars_fixture_hard_conv",
+         batch=cfg.train.batch_size, steps=TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         per_step=auxes, tensors_moved=len(start))
+
+    # The first step's loss and gradients, kernels against plain
+    # versions. cuDNN is held to deterministic algorithms so that the
+    # two runs differ by the segment ops alone; those are exact (max,
+    # gather) or equal to the last f32 bit (f64 sums), so: loss within
+    # 1e-5 relative, every gradient within 1e-3 of its own L2 norm.
+    torch.backends.cudnn.deterministic = True
+    pipe.model.load_state_dict(start)
+    loss_k, pos_k, grads_k = loss_and_grads(pipe, first)
+    pipe.model.load_state_dict(start)
+    before = segment_launches()
+    with plain_segment_ops():
+        loss_p, pos_p, grads_p = loss_and_grads(pipe, first)
+    if segment_launches() != before:
+        raise AssertionError("the plain run launched a segment kernel")
+    torch.backends.cudnn.deterministic = False
+    if float(pos_k) != float(pos_p):
+        raise AssertionError(f"num_pos {float(pos_k)} vs {float(pos_p)}")
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if rel_loss > 1e-5:
+        raise AssertionError(f"loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}")
+    worst, worst_name = 0.0, ""
+    for name, gk in grads_k.items():
+        gp = grads_p[name]
+        rel = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > 1e-3:
+        raise AssertionError(f"gradient of {worst_name}: relative L2 "
+                             f"difference {worst} from the plain run")
+    emit("train_vs_plain", loss=float(loss_k), plain_loss=float(loss_p),
+         loss_rel_diff=rel_loss, num_pos=float(pos_k),
+         worst_grad_rel_l2=worst, worst_grad=worst_name,
+         gradients=len(grads_k))
+
+    # The normal entry point, from seed initialisation.
+    short = train_config(8, log_every=2)
+    with torch.enable_grad():
+        trained, history = lisec_tpu_torch.train(short, progress=False)
+    torch.cuda.synchronize()
+    if len(history) != 5 or trained.step != 8:
+        raise AssertionError(f"train(): {len(history)} records, "
+                             f"step {trained.step}")
+    for rec in history:
+        if not all(v == v and abs(v) != float("inf")
+                   for v in rec.values()):
+            raise AssertionError(f"train(): non-finite {rec}")
+    emit("train_entry_point", steps=8,
+         loss_per_logged_step={r["step"]: r["loss"] for r in history},
+         lr={r["step"]: r["lr"] for r in history})
+    pipe.model.load_state_dict(start)
+    return pipe, cfg, first, launches
+
+
+def paint_bound(vals, ids, num_cells):
+    """Least ms: every id and the rows this run's ids place in the table
+    read once (a dropped row's values are never needed), the table written
+    once, over the memory rate; one compare or add per placed row-channel
+    over the f32 rate."""
+    b, _, c = vals.shape
+    placed = int(((ids >= 0) & (ids < num_cells)).sum())
+    nbytes = ids.nbytes + placed * c * 4 + b * num_cells * c * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = placed * c / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def unpaint_bound(table, ids):
+    """Least ms: the ids and the table rows this run's ids name read
+    once, the output written once; no arithmetic."""
+    import torch
+    b, r, c = table.shape
+    ok = (ids >= 0) & (ids < r)
+    flat = ids.long() + torch.arange(b, device=ids.device)[:, None] * r
+    rows_read = int(torch.unique(flat[ok]).numel())
+    nbytes = ids.nbytes + rows_read * c * 4 + ids.numel() * c * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def phase_train_timing(pipe, cfg, batch):
+    """The train step and its parts at batch 4, and both segment kernels
+    on the very tensors one train step hands them."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    b = cfg.train.batch_size
+    with torch.enable_grad():
+        ms_step = cuda_ms(lambda: pipe.train_step(batch), iters=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pipe.train_step(batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+        dev = pipe.device_batch(batch)
+        parts = dict.fromkeys(("forward", "assign_loss", "backward",
+                               "optimizer"), 0.0)
+        for it in range(7):                          # 2 warm-up + 5
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            pipe.model.train()
+            pipe.optimizer.zero_grad()
+            ev[0].record()
+            preds = pipe.model(dev["points"], dev["point_mask"])
+            ev[1].record()
+            loss, _ = pipe.loss_terms(preds, pipe.assign(dev))
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            pipe.optimizer.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            if it >= 2:
+                for i, k in enumerate(parts):
+                    parts[k] += ev[i].elapsed_time(ev[i + 1]) / 5
+    emit("train_step", config="pointpillars_fixture_hard_conv", batch=b,
+         ms_per_step=ms_step, clouds_per_s=b * 1e3 / ms_step,
+         host_clock_ms_per_step=host_ms,
+         host_clock_clouds_per_s=b * 1e3 / host_ms,
+         **{f"{k}_ms": v for k, v in parts.items()})
+
+    # Record what one forward and backward hands the two wrappers.
+    calls = {"segment_paint": [], "segment_unpaint": []}
+
+    def rec_paint(vals, ids, *, num_cells, num_max, split=None):
+        calls["segment_paint"].append((vals.detach(), ids, num_cells,
+                                       num_max, split))
+        return sp.segment_paint(vals, ids, num_cells=num_cells,
+                                num_max=num_max, split=split)
+
+    def rec_unpaint(table, ids):
+        calls["segment_unpaint"].append((table.detach(), ids))
+        return su.segment_unpaint(table, ids)
+
+    with swapped_segment_ops(rec_paint, rec_unpaint):
+        loss_and_grads(pipe, batch)
+    rows = {}
+
+    per_call = []
+    for vals, ids, nc, num_max, split in calls["segment_paint"]:
+        c = vals.shape[2]
+        offs = sp.segment_offsets(ids, nc)
+        out = torch.empty((vals.shape[0], nc, split or c), device="cuda")
+        tail = torch.empty((vals.shape[0], nc, c - split),
+                           device="cuda") if split else None
+        bound, by, nbytes = paint_bound(vals, ids, nc)
+        library = None
+        if num_max == 0:
+            # One PyTorch call computes an all-sum table: index_add_ (on
+            # a table with a trash row per cloud, f32 atomics).
+            rows_ix = (torch.where((ids < 0) | (ids >= nc), nc, ids).long()
+                       + torch.arange(vals.shape[0], device="cuda")[:, None]
+                       * (nc + 1)).reshape(-1)
+            flat = vals.reshape(-1, c)
+            library = cuda_ms(lambda: torch.zeros(
+                (vals.shape[0] * (nc + 1), c), device="cuda").index_add_(
+                    0, rows_ix, flat), 20)
+        per_call.append(dict(
+            rows=list(vals.shape), table_rows=nc, num_max=num_max,
+            split=split,
+            rows_placed=int(((ids >= 0) & (ids < nc)).sum()),
+            ms=cuda_ms(lambda: sp.segment_paint(
+                vals, ids, num_cells=nc, num_max=num_max, split=split), 20),
+            kernel_ms=cuda_ms(lambda: sp.launch_paint_kernel(
+                vals, offs, out, num_max=num_max, out_tail=tail), 20),
+            glue_ms=cuda_ms(lambda: sp.segment_offsets(ids, nc), 20),
+            plain_ms=cuda_ms(lambda: sp.segment_paint_reference(
+                vals, ids, num_cells=nc, num_max=num_max, split=split), 5),
+            library_ms=library, bound_ms=bound, bound_by=by, bytes=nbytes))
+    rows["segment_paint"] = per_call
+
+    per_call = []
+    for table, ids in calls["segment_unpaint"]:
+        c = table.shape[2]
+        bound, by, nbytes = unpaint_bound(table, ids)
+        ok = (ids >= 0) & (ids < table.shape[1])
+        idx = torch.where(ok, ids, 0).long()[..., None].expand(-1, -1, c)
+        per_call.append(dict(
+            table=list(table.shape), rows=list(ids.shape),
+            ms=cuda_ms(lambda: su.segment_unpaint(table, ids), 20),
+            plain_ms=cuda_ms(lambda: su.segment_unpaint_reference(
+                table, ids), 5),
+            library_ms=cuda_ms(lambda: torch.gather(table, 1, idx), 20),
+            bound_ms=bound, bound_by=by, bytes=nbytes))
+    rows["segment_unpaint"] = per_call
+    for name, per_call in rows.items():
+        for i, call in enumerate(per_call):
+            emit("train_kernel", kernel=name, call=i, **call)
+    return rows
+
+
+# -- phase 5: inference timing ----------------------------------------------
 
 def conv_flops(model, ny, nx):
     """Flops (2 per multiply-add) of the backbone, neck and head convs for
@@ -372,6 +855,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from lisec_tpu_torch.api import build_model, load_config
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.weights import load_weights_npz
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -382,18 +867,42 @@ def main() -> int:
 
     phase_build()
     phase_kernel_check(gen)
+    seg_err = phase_segment_kernel_check(gen)
     cfg = load_config(KITTI_CFG)
     pipe = build_model(cfg)
     load_weights_npz(pipe.model, WEIGHTS)
     launches, err = phase_main_path(pipe, cfg)
     phase_tiny_vs_cpu()
+    train_pipe, train_cfg, train_batch, train_launches = phase_train_path()
     timing = phase_timing(pipe, cfg)
+    train_rows = phase_train_timing(train_pipe, train_cfg, train_batch)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         **ek.KERNEL_INFO, "launches": launches, "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}]
+    # The segment kernels: the times of one train step's calls together
+    # (three paints; the unpaints of the decoration and the segment-max
+    # backward), each call also on its own under "calls". No single
+    # PyTorch call computes a table of max and sum channels, so the
+    # paint's library time stands only with its all-sum call.
+    for mod in (sp, su):
+        name = mod.KERNEL_INFO["name"]
+        per_call = train_rows[name]
+        library = [c["library_ms"] for c in per_call]
+        kernels.append({
+            **mod.KERNEL_INFO, "launches": train_launches[name],
+            "max_abs_err": seg_err[name],
+            "ms": sum(c["ms"] for c in per_call),
+            "plain_ms": sum(c["plain_ms"] for c in per_call),
+            "bound_ms": sum(c["bound_ms"] for c in per_call),
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                       for c in per_call) else "operations",
+            "library_ms": None if None in library else sum(library),
+            "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
+            "calls": per_call})
+    print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

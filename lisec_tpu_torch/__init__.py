@@ -8,13 +8,23 @@ launch, beside a plain PyTorch version of the same function that the
 wrappers take for CPU tensors.
 
 Ported so far: PointPillars inference (``configs/pointpillars_kitti.yaml``)
-with the fused pillar-encoder kernel. Public API::
+with the fused pillar-encoder kernel, and PointPillars training
+(``configs/pointpillars_fixture_hard_conv.yaml``) with the segment paint
+and unpaint kernels. Checkpoints, data-parallel training, host-side
+augmentation and evaluation are not ported yet and raise
+``NotImplementedError`` when a config asks for them. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")
     pipeline = lisec_tpu_torch.build_model(cfg)          # device="cuda"
     lisec_tpu_torch.load_weights_npz(pipeline.model, "weights/....npz")
     batch    = lisec_tpu_torch.preprocess(lisec_tpu_torch.load_cloud(p), cfg)
     out      = lisec_tpu_torch.infer(pipeline, {k: v[None] for k, v in batch.items()})
+
+    cfg = lisec_tpu_torch.apply_overrides(cfg, ["train.num_steps=100"])
+    pipeline, history = lisec_tpu_torch.train(cfg)       # device="cuda"
+
+Every entry point takes ``device`` (default ``"cuda"``; ``"cpu"`` runs the
+kernels' plain PyTorch versions, as the tests do).
 """
 
 from lisec_tpu_torch.api import (
@@ -23,12 +33,15 @@ from lisec_tpu_torch.api import (
     load_cloud,
     load_config,
     preprocess,
+    train,
 )
-from lisec_tpu_torch.config import Config
-from lisec_tpu_torch.weights import convert_flax_arrays, load_weights_npz
+from lisec_tpu_torch.config import Config, apply_overrides
+from lisec_tpu_torch.weights import (
+    convert_flax_arrays, load_weights_npz, to_flax_arrays)
 
 __all__ = [
     "Config",
+    "apply_overrides",
     "build_model",
     "convert_flax_arrays",
     "infer",
@@ -36,4 +49,6 @@ __all__ = [
     "load_config",
     "load_weights_npz",
     "preprocess",
+    "to_flax_arrays",
+    "train",
 ]

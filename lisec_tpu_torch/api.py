@@ -1,10 +1,10 @@
 """Public Python API (port of ``lisec_tpu/api.py``).
 
-``load_cloud -> preprocess -> build_model -> infer -> boxes/labels``.
-``preprocess`` pads to the config budgets on the host; ``infer`` runs the
-pipeline on its device. The device is explicit and defaults to
-``"cuda"``; without a card that raises (``device="cpu"`` runs the plain
-PyTorch path). The weights live in the pipeline's model, so ``infer``
+``load_cloud -> preprocess -> build_model -> infer -> boxes/labels``, and
+``train(cfg)``. ``preprocess`` pads to the config budgets on the host;
+``infer`` and ``train`` run the pipeline on its device. The device is
+explicit and defaults to ``"cuda"``; without a card that raises
+(``device="cpu"`` runs the plain PyTorch path). The weights live in the pipeline's model, so ``infer``
 takes no separate state.
 """
 
@@ -18,6 +18,7 @@ import torch
 
 from lisec_tpu_torch.config import Config, load_config  # noqa: F401
 from lisec_tpu_torch.data.collate import pad_points
+from lisec_tpu_torch.pipelines.base import same_device
 
 
 def load_cloud(path: str) -> np.ndarray:
@@ -59,9 +60,16 @@ def build_model(cfg: Config, device="cuda"):
 
 
 def infer(pipeline, batch, device="cuda") -> Dict[str, torch.Tensor]:
-    """Run the pipeline's inference on a batch; ``device`` must be the
-    pipeline's."""
-    if torch.device(device) != pipeline.device:
+    """Run the pipeline's inference on a batch; ``device`` must name the
+    pipeline's device."""
+    if not same_device(device, pipeline.device):
         raise ValueError(f"pipeline is on {pipeline.device}, "
                          f"infer asked for {device!r}")
     return pipeline.infer(batch)
+
+
+def train(cfg: Config, device="cuda", progress: bool = True):
+    """Train a config from scratch on ``device``; returns (pipeline,
+    history), the trained weights being the pipeline's model."""
+    from lisec_tpu_torch.training.loop import run_training
+    return run_training(cfg, device=device, progress=progress)

@@ -1,8 +1,10 @@
-"""Synthetic detection fixture (copy of ``_ray_box_t`` and
-``make_detection_scene_hard`` from ``lisec_tpu/data/fixtures.py``).
+"""Synthetic detection fixtures (copy of ``make_detection_scene``,
+``_ray_box_t`` and ``make_detection_scene_hard`` from
+``lisec_tpu/data/fixtures.py``).
 
-Real datasets are not shipped, so the smoke run and the tests draw
-ray-cast lidar scenes from a seed. The copy must reproduce the JAX
+Real datasets are not shipped, so training, the smoke run and the tests
+draw lidar-like scenes from a seed: box-shaped clusters on ground
+clutter, or ray-cast scenes with occlusion. The copy must reproduce the JAX
 package's arrays bit for bit (``tests/test_torch_pointpillars.py``).
 """
 
@@ -11,6 +13,72 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+
+def make_detection_scene(
+    seed: int,
+    *,
+    num_objects: int = 5,
+    num_bg_points: int = 6000,
+    points_per_object: int = 200,
+    pc_range=(0.0, -39.68, -3.0, 69.12, 39.68, 1.0),
+    num_classes: int = 1,
+) -> Dict[str, np.ndarray]:
+    """A lidar-like scene: ground-plane clutter + box-shaped clusters.
+
+    Boxes are car-sized with yaw; points inside each box are dense, so a
+    detector can learn localization from geometry alone.
+    """
+    rng = np.random.default_rng(seed)
+    # Background: rough ground plane with distance falloff.
+    r = rng.exponential(20.0, num_bg_points).clip(2, 68)
+    theta = rng.uniform(-0.45 * np.pi, 0.45 * np.pi, num_bg_points)
+    bx = r * np.cos(theta)
+    by = r * np.sin(theta)
+    bz = rng.normal(-1.6, 0.08, num_bg_points)
+    bg = np.stack([bx, by, bz, rng.uniform(0, 0.3, num_bg_points)], -1)
+
+    boxes, classes, obj_pts = [], [], []
+    for i in range(num_objects):
+        cls = int(rng.integers(0, num_classes))
+        l, w, h = [(3.9, 1.6, 1.56), (0.8, 0.6, 1.73), (1.76, 0.6, 1.73)][
+            cls % 3]
+        cx = rng.uniform(5, 60)
+        cy = rng.uniform(-30, 30)
+        cz = -1.6 + h / 2
+        yaw = rng.uniform(-np.pi, np.pi)
+        local = np.stack([
+            rng.uniform(-l / 2, l / 2, points_per_object),
+            rng.uniform(-w / 2, w / 2, points_per_object),
+            rng.uniform(-h / 2, h / 2, points_per_object)], -1)
+        # Heading cue: real vehicles are front/back asymmetric (low
+        # hood, high cabin). Cap the height of front-quarter points so
+        # heading is learnable — a uniform box is 180-degree symmetric
+        # and pins the direction classifier's CE at ln 2 forever.
+        front = local[:, 0] > l / 4
+        local[:, 2] = np.where(
+            front, np.minimum(local[:, 2], -0.1 * h), local[:, 2])
+        c, s = np.cos(yaw), np.sin(yaw)
+        world = np.stack([
+            cx + local[:, 0] * c - local[:, 1] * s,
+            cy + local[:, 0] * s + local[:, 1] * c,
+            cz + local[:, 2]], -1)
+        inten = rng.uniform(0.4, 1.0, (points_per_object, 1))
+        obj_pts.append(np.concatenate([world, inten], -1))
+        boxes.append([cx, cy, cz, l, w, h, yaw])
+        classes.append(cls)
+
+    points = np.concatenate([bg] + obj_pts).astype(np.float32)
+    rng.shuffle(points)
+    # Keep only in-range points.
+    m = ((points[:, 0] >= pc_range[0]) & (points[:, 0] < pc_range[3])
+         & (points[:, 1] >= pc_range[1]) & (points[:, 1] < pc_range[4])
+         & (points[:, 2] >= pc_range[2]) & (points[:, 2] < pc_range[5]))
+    return {
+        "points": points[m],
+        "gt_boxes": np.asarray(boxes, np.float32),
+        "gt_classes": np.asarray(classes, np.int32),
+    }
 
 
 def _ray_box_t(o_loc: np.ndarray, d_loc: np.ndarray,

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -25,7 +26,14 @@ def pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 
 class ConvBNRelu(nn.Module):
-    """2D conv (or transposed conv) + inference BatchNorm + ReLU.
+    """2D conv (or transposed conv) + BatchNorm + ReLU.
+
+    BatchNorm is written out as flax's ``BatchNorm(momentum=0.99,
+    epsilon=1e-3)`` computes it: in ``eval()`` mode with the running
+    statistics; in ``train()`` mode with the batch statistics in f32, the
+    variance as E[x^2] - E[x]^2 clipped at 0, and that biased variance
+    going into the running statistics with momentum 0.99
+    (``torch.nn.BatchNorm2d`` stores the unbiased one).
 
     The conv weight is (out, in, k, k); the transposed conv's is
     (in, out, k, k), already spatially flipped, so that
@@ -56,7 +64,16 @@ class ConvBNRelu(nn.Module):
             x = F.conv2d(pad_same(x, self.kernel, self.stride), w,
                          stride=self.stride)
         # flax's BatchNorm computes in f32 and returns the compute dtype.
-        mul = torch.rsqrt(self.var + BN_EPS) * self.scale
-        y = (x.float() - self.mean[:, None, None]) * mul[:, None, None]
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0)
+            with torch.no_grad():
+                self.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+                self.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
         y = y + self.bias[:, None, None]
         return torch.relu(y.to(self.dtype))

@@ -1,4 +1,4 @@
-"""Fused pillar encoder, inference path (port of
+"""Fused pillar encoder (port of
 ``lisec_tpu/models/pillar_encoder.py::FusedPillarEncoder``).
 
 The PFN is per-point-then-per-pillar-max, so no voxel buffer is needed:
@@ -6,10 +6,18 @@ The PFN is per-point-then-per-pillar-max, so no voxel buffer is needed:
     Dense([pts4, xyz - mean_c, xy - center_c])
       = [pts4, xyz, xy] @ W  -  mean_c @ W[4:7]  -  center_c @ W[7:9]
 
-and inference BatchNorm folds into (W, t) with max and relu still
-commuting, so one kernel computes the canvas
-(``lisec_tpu_torch/ops/cuda/encoder_kernel.py``). The training path
-(batch statistics, paint/unpaint) is not ported yet.
+**Inference** (``eval()`` mode): BatchNorm folds into (W, t) with max and
+relu still commuting, so one kernel computes the canvas
+(``lisec_tpu_torch/ops/cuda/encoder_kernel.py``).
+
+**Training** (``train()`` mode): BatchNorm needs the batch statistics of
+the per-point features, so the steps stay apart. The points are sorted by
+cell; the paint kernel gives every cell's xyz sums and count and the
+unpaint kernel routes them back to the points (the decoration has no
+parameters and runs under ``no_grad``); then ``feats @ W -> BN -> relu``
+is plain PyTorch and ``segment_max_sorted`` (paint forward, unpaint
+backward, ``lisec_tpu_torch/ops/scatter.py``) reduces the points to the
+canvas.
 """
 
 from __future__ import annotations
@@ -19,9 +27,12 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from lisec_tpu_torch.ops.cuda.encoder_kernel import pillar_canvas_fused
-
-BN_EPS = 1e-3
+from lisec_tpu_torch.models.common import BN_EPS, BN_MOMENTUM
+from lisec_tpu_torch.ops.cuda.encoder_kernel import (
+    pillar_canvas_fused, pillar_cells)
+from lisec_tpu_torch.ops.cuda.segment_paint import segment_paint
+from lisec_tpu_torch.ops.cuda.segment_unpaint import segment_unpaint
+from lisec_tpu_torch.ops.scatter import segment_max_sorted
 
 
 class FusedPillarEncoder(nn.Module):
@@ -54,9 +65,61 @@ class FusedPillarEncoder(nn.Module):
 
     def forward(self, points: torch.Tensor,
                 point_mask: torch.Tensor) -> torch.Tensor:
+        points = points.float().contiguous()
+        if self.training:
+            return self._train_path(points, point_mask)
         w, t = self.folded_weights()
-        return pillar_canvas_fused(points.float().contiguous(), point_mask,
-                                   w, t, grid=self.grid,
+        return pillar_canvas_fused(points, point_mask, w, t, grid=self.grid,
                                    voxel_size=self.voxel_size,
                                    pc_range=self.pc_range,
                                    out_dtype=self.dtype)
+
+    @torch.no_grad()
+    def decorate_sorted(self, points: torch.Tensor,
+                        point_mask: torch.Tensor):
+        """Sort the points by cell and decorate them: returns (cell_s
+        (B, N) int32 ascending, invalid = nx * ny; feats (B, N, 9) f32
+        ``[x, y, z, r, xyz - cell mean, xy - cell centre]``, zero rows
+        where invalid)."""
+        nx, ny = self.grid
+        ncells = nx * ny
+        r = self.pc_range
+        cell, _, _, _ = pillar_cells(points, point_mask, grid=self.grid,
+                                     voxel_size=self.voxel_size,
+                                     pc_range=r)
+        cell_s, order = torch.sort(cell, dim=1, stable=True)
+        pts_s = torch.gather(points, 1, order[..., None].expand(-1, -1, 4))
+        ones = (cell_s < ncells).float()[..., None]
+        xyz = pts_s[..., :3]
+
+        # Per-cell xyz sums and count, routed back to the cell's points.
+        stats = segment_paint(torch.cat([xyz * ones, ones], -1), cell_s,
+                              num_cells=ncells, num_max=0)     # (B, NC, 4)
+        per_pt = segment_unpaint(stats, cell_s)                # (B, N, 4)
+        mean_pt = per_pt[..., :3] / per_pt[..., 3:].clamp_min(1.0)
+
+        cell_c = cell_s.clamp(max=ncells - 1)
+        px = ((cell_c % nx).float() + 0.5) * self.voxel_size[0] + r[0]
+        py = ((cell_c // nx).float() + 0.5) * self.voxel_size[1] + r[1]
+        center = torch.stack([pts_s[..., 0] - px, pts_s[..., 1] - py], -1)
+        feats = torch.cat([pts_s, xyz - mean_pt, center], -1) * ones
+        return cell_s, feats
+
+    def _train_path(self, points, point_mask):
+        nx, ny = self.grid
+        cell_s, feats = self.decorate_sorted(points, point_mask)
+        h = feats.to(self.dtype) @ self.kernel.to(self.dtype)  # (B, N, C)
+        h32 = h.float()
+        # Batch statistics over all B * N rows, the zero rows of masked
+        # and out-of-range points included; the biased variance.
+        mu = h32.mean(dim=(0, 1))
+        var = h32.var(dim=(0, 1), unbiased=False)
+        with torch.no_grad():
+            self.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mu)
+            self.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+        s = self.scale * torch.rsqrt(var + BN_EPS)
+        t = self.bias - s * mu
+        hr = torch.relu((h32 * s + t).to(self.dtype))
+        canvas, count = segment_max_sorted(hr, cell_s, nx * ny)
+        canvas = torch.where(count[..., None] > 0.0, canvas, 0.0)
+        return canvas.to(self.dtype)

@@ -107,7 +107,8 @@ class AnchorHead(nn.Module):
 
 class PointPillarsFused(nn.Module):
     """Raw padded points (B, N, 4) + mask (B, N) in, per-anchor
-    predictions out."""
+    predictions out. ``train()`` / ``eval()`` select batch or running
+    BatchNorm statistics in the encoder and every conv block."""
 
     def __init__(self, num_classes: int, grid_size: Tuple[int, int, int],
                  voxel_size: Tuple[float, float],
@@ -142,11 +143,14 @@ class PointPillarsFused(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random kernels, normal with variance 1 / fan_in (flax's
-        lecun-normal without its truncation); BN, biases and the head's
-        class prior keep their constructor values."""
+        """Fresh weights: kernels normal with variance 1 / fan_in (flax's
+        lecun-normal without its truncation), drawn on the CPU from
+        ``generator``; BN scales 1, biases 0, running statistics (0, 1);
+        the head's class bias at the focal-loss prior."""
         for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[1]
             if p.dim() < 2:
+                p.fill_(1.0 if leaf == "scale" else 0.0)
                 continue
             module = self.get_submodule(name.rsplit(".", 1)[0])
             if module is self.encoder:                     # (9, C)
@@ -155,4 +159,8 @@ class PointPillarsFused(nn.Module):
                 fan_in = p.shape[0] * p.shape[2] * p.shape[3]
             else:                                          # (out, in, k, k)
                 fan_in = p[0].numel()
-            p.normal_(0.0, fan_in ** -0.5, generator=generator)
+            p.copy_(torch.empty(p.shape).normal_(
+                0.0, fan_in ** -0.5, generator=generator))
+        self.head.cls.bias.fill_(CLS_BIAS_INIT)
+        for name, buf in self.named_buffers():
+            buf.fill_(1.0 if name.endswith("var") else 0.0)

@@ -1,4 +1,4 @@
-"""Box decoding and BEV corners (port of ``lisec_tpu/ops/boxes.py``).
+"""Box coding and BEV corners (port of ``lisec_tpu/ops/boxes.py``).
 
 7-DoF boxes ``(x, y, z, l, w, h, yaw)`` with (x, y, z) the box centre,
 l along the heading and yaw about +z from +x; residuals follow the
@@ -8,6 +8,30 @@ diagonal-normalised SECOND/PointPillars coding.
 from __future__ import annotations
 
 import torch
+
+_EPS = 1e-6
+
+
+def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Residual-encode target boxes against anchors, both (..., 7).
+
+    (dx, dy) are normalised by the anchor's BEV diagonal, dz by its
+    height, sizes by log-ratio, the angle as a plain residual (the
+    sin-difference trick lives in the loss). The JAX package also has
+    this function on channel-leading columns, a tiling device of its
+    machine; one row form serves here."""
+    xa, ya, za, la, wa, ha, ra = anchors.unbind(-1)
+    xg, yg, zg, lg, wg, hg, rg = boxes.unbind(-1)
+    diag = torch.sqrt(la * la + wa * wa) + _EPS
+    return torch.stack([
+        (xg - xa) / diag,
+        (yg - ya) / diag,
+        (zg - za) / (ha + _EPS),
+        torch.log(lg / (la + _EPS) + _EPS),
+        torch.log(wg / (wa + _EPS) + _EPS),
+        torch.log(hg / (ha + _EPS) + _EPS),
+        rg - ra,
+    ], dim=-1)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:

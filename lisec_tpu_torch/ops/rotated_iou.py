@@ -119,3 +119,16 @@ def rotated_iou_bev(boxes_a: torch.Tensor,
     inter = torch.minimum(inter, torch.minimum(area_a, area_b))
     union = area_a + area_b - inter
     return inter / union.clamp_min(_EPS)
+
+
+def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor, *,
+                       row_chunk: int = 0) -> torch.Tensor:
+    """Pairwise rotated BEV IoU: (M, 7) x (N, 7) -> (M, N).
+
+    ``row_chunk`` > 0 evaluates the matrix in row blocks to bound peak
+    memory on large M * N."""
+    if row_chunk and boxes_a.shape[0] > row_chunk:
+        return torch.cat([
+            rotated_iou_bev(block[:, None, :], boxes_b[None, :, :])
+            for block in boxes_a.split(row_chunk)])
+    return rotated_iou_bev(boxes_a[:, None, :], boxes_b[None, :, :])

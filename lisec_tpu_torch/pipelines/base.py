@@ -1,20 +1,23 @@
-"""Pipeline base (port of ``lisec_tpu/pipelines/base.py``, inference).
+"""Pipeline base (port of ``lisec_tpu/pipelines/base.py``).
 
-A pipeline owns the model and its post-processing on one explicit
-device. ``"cuda"`` is the default; without a card it raises instead of
-running on the CPU, where only the caller's ``device="cpu"`` runs the
-plain PyTorch versions of the kernels. Training, the optimizer and the
-device mesh come with later slices.
+A pipeline owns the model, its loss, its optimizer and its
+post-processing on one explicit device. ``"cuda"`` is the default;
+without a card it raises instead of running on the CPU, where only the
+caller's ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+The model and the optimizer hold the training state (parameters,
+running statistics, moments, step count), so there is no separate state
+object. The device mesh and data-parallel training are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from lisec_tpu_torch.config import Config
+from lisec_tpu_torch.training.optim import make_optimizer
 
 
 def resolve_device(device) -> torch.device:
@@ -28,22 +31,91 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def same_device(a, b) -> bool:
+    """Whether two device specs name one device (``"cuda"`` is the
+    current card, so it equals ``"cuda:0"`` when that is current)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+
+    def index(d):
+        return torch.cuda.current_device() if d.index is None else d.index
+    return index(a) == index(b)
+
+
 class Pipeline:
-    """Subclasses set ``self.model`` (an ``nn.Module`` on
-    ``self.device``) in ``__init__`` and implement ``predict``."""
+    """Subclasses set ``self.model`` (an ``nn.Module`` on ``self.device``
+    with a ``reset_parameters(generator)``) in ``__init__`` and implement
+    ``make_dataset``, ``loss`` and ``predict``."""
 
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.optimizer = None
+        self.schedule = None
+
+    # -- subclass API ------------------------------------------------------
+
+    def make_dataset(self, split: str):
+        raise NotImplementedError
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, aux metrics) of a batch of tensors on ``self.device``,
+        with the model in the mode the caller set."""
+        raise NotImplementedError
 
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """Inference outputs from a batch of tensors on ``self.device``."""
         raise NotImplementedError
 
+    def augment_fn(self, split: str):
+        """Host-side augmentation hook; None = no augmentation."""
+        return None
+
+    # -- provided machinery ------------------------------------------------
+
+    def device_batch(self, batch: Dict[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    def init_state(self, seed: int = 0) -> None:
+        """Fresh training state: parameters from ``seed`` (an explicit
+        ``torch.Generator``), running statistics at their initial values,
+        a new optimizer at step 0."""
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self.optimizer, self.schedule = make_optimizer(
+            self.model.parameters(), self.cfg.train)
+
+    @property
+    def step(self) -> int:
+        """Train steps taken since ``init_state``."""
+        return self.optimizer.count
+
+    def train_step(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        """Forward, backward and one optimizer update on a batch (numpy
+        arrays or tensors). Returns the loss's aux metrics plus ``loss``
+        and ``grad_norm`` (the global norm before clipping), as 0-dim
+        tensors on the device."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state() before train_step()")
+        self.model.train()
+        self.optimizer.zero_grad()
+        loss, aux = self.loss(self.device_batch(batch))
+        loss.backward()
+        grad_norm = self.optimizer.step()
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["loss"] = loss.detach()
+        aux["grad_norm"] = grad_norm
+        return aux
+
     @torch.no_grad()
     def infer(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Batch (numpy arrays or tensors) in, outputs on the device out."""
-        batch = {k: torch.as_tensor(v, device=self.device)
-                 for k, v in batch.items()}
-        return self.predict(batch)
+        self.model.eval()
+        return self.predict(self.device_batch(batch))

@@ -1,8 +1,10 @@
-"""Anchor-based 3D detection, PointPillars inference (port of
+"""Anchor-based 3D detection, PointPillars (port of
 ``lisec_tpu/pipelines/detection.py::PointPillarsPipeline``).
 
-points + mask -> fused encoder -> backbone -> head -> score preselect ->
-decode -> direction-bin yaw -> rotated NMS -> boxes/scores/labels/valid.
+Inference: points + mask -> fused encoder -> backbone -> head -> score
+preselect -> decode -> direction-bin yaw -> rotated NMS ->
+boxes/scores/labels/valid. Training assigns targets on the device and
+uses the focal / smooth-L1 with sin-difference / direction loss recipe.
 """
 
 from __future__ import annotations
@@ -11,15 +13,20 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from lisec_tpu_torch.config import Config
+from lisec_tpu_torch.data.kitti import KittiDetection
 from lisec_tpu_torch.models.pointpillars import PointPillarsFused
 from lisec_tpu_torch.ops.boxes import decode_boxes
 from lisec_tpu_torch.ops.nms import rotated_nms, top_k
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.assigner import (
-    DEFAULT_ANCHORS, AnchorConfig, generate_anchors)
+    DEFAULT_ANCHORS, AnchorConfig, assign_targets,
+    assign_targets_windowed_batched, generate_anchors)
+from lisec_tpu_torch.training.losses import (
+    sigmoid_focal_loss, sin_difference, smooth_l1)
 
 register_model("pointpillars")(PointPillarsFused)
 
@@ -48,17 +55,36 @@ class PointPillarsPipeline(Pipeline):
                 float(over.get("z_center", base.z_center)),
                 float(over.get("pos_threshold", base.pos_threshold)),
                 float(over.get("neg_threshold", base.neg_threshold))))
-        anchors, _, _, _ = generate_anchors(
+        anchors, acls, pos_t, neg_t = generate_anchors(
             anchor_cfgs, pc_range=cfg.voxel.point_cloud_range,
             feature_map_size=self.fmap)
-        self.anchors = torch.from_numpy(anchors).to(self.device)
+        dev = self.device
+        self.anchors = torch.from_numpy(anchors).to(dev)
+        self.anchor_classes = torch.from_numpy(acls).to(dev)
+        self.pos_thr = torch.from_numpy(pos_t).to(dev)
+        self.neg_thr = torch.from_numpy(neg_t).to(dev)
+        self.class_sizes = torch.tensor([c.size for c in anchor_cfgs],
+                                        dtype=torch.float32, device=dev)
+        self.class_z = torch.tensor([c.z_center for c in anchor_cfgs],
+                                    dtype=torch.float32, device=dev)
 
-        # Random weights from the seed; load_weights_npz replaces them.
+        # Random weights from the seed; load_weights_npz replaces them and
+        # init_state(seed) draws them anew for training.
         model = self.build_model(cfg)
         model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
+        self.loss_weights = {
+            "cls": float(p.get("cls_weight", 1.0)),
+            "loc": float(p.get("loc_weight", 2.0)),
+            "dir": float(p.get("dir_weight", 0.2)),
+        }
         self.nms_iou = float(p.get("nms_iou", 0.5))
         self.score_thr = float(p.get("score_threshold", 0.1))
+        self.assign_row_chunk = int(p.get("assign_row_chunk", 4096))
+        # Windowed assigner (0 = the dense reference). The window must
+        # cover gt_diag + anchor_diag; it never exceeds the feature map.
+        self.assign_window = min(int(p.get("assign_window", 32)),
+                                 min(self.fmap))
 
     def build_model(self, cfg: Config) -> PointPillarsFused:
         p = cfg.model.params
@@ -83,6 +109,83 @@ class PointPillarsPipeline(Pipeline):
                                             [128, 128, 128])),
             dtype=_DTYPES[p.get("dtype", "float32")],
         )
+
+    # -- data --------------------------------------------------------------
+
+    def make_dataset(self, split: str):
+        return KittiDetection(self.cfg, split)
+
+    def augment_fn(self, split: str):
+        if split != "train" or not self.cfg.data.augment.enabled:
+            return None
+        raise NotImplementedError(
+            "host-side augmentation (data.augment.enabled) is not ported "
+            "to lisec_tpu_torch yet")
+
+    # -- training ----------------------------------------------------------
+
+    def assign(self, batch: Dict[str, torch.Tensor]):
+        """Targets for a batch of padded gts (no gradient)."""
+        args = (self.anchors, self.anchor_classes, self.pos_thr,
+                self.neg_thr)
+        gts = (batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"])
+        with torch.no_grad():
+            if self.assign_window:
+                return assign_targets_windowed_batched(
+                    *args, self.class_sizes, self.class_z, *gts,
+                    feature_map_size=self.fmap,
+                    pc_range=tuple(self.cfg.voxel.point_cloud_range),
+                    window=self.assign_window)
+            frames = [assign_targets(*args, b, c, m,
+                                     row_chunk=self.assign_row_chunk)
+                      for b, c, m in zip(*gts)]
+            return type(frames[0])(*(torch.stack(f) for f in zip(*frames)))
+
+    def loss(self, batch):
+        preds = self.model(batch["points"], batch["point_mask"])
+        return self.loss_terms(preds, self.assign(batch))
+
+    def loss_terms(self, preds, assign):
+        """(total, aux) from the head's predictions and the targets."""
+        pos = assign.positive                              # (B, A)
+        num_pos_sum = pos.sum()
+        num_pos = num_pos_sum.float().clamp_min(1.0)       # whole batch
+
+        # Classification: focal loss, one-vs-all; bg = all-zero targets,
+        # ignored anchors (-1) masked out.
+        cls_t = assign.cls_targets                         # (B, A)
+        cls_p = preds["cls"]                               # (B, A, C)
+        cls_ids = torch.arange(1, self.num_classes + 1, dtype=cls_t.dtype,
+                               device=cls_t.device)
+        onehot = (cls_t[..., None] == cls_ids).to(cls_p.dtype)
+        focal = sigmoid_focal_loss(cls_p, onehot)
+        valid = (cls_t >= 0)[..., None]
+        cls_loss = torch.where(valid, focal, 0.0).sum() / num_pos
+
+        # Localization: smooth-L1 on encoded residuals with sin-diff.
+        pred_box, target_box = sin_difference(preds["box"],
+                                              assign.reg_targets)
+        loc = smooth_l1(pred_box, target_box)
+        loc_loss = torch.where(pos[..., None], loc, 0.0).sum() / num_pos
+
+        # Direction classifier on positives: the two-logit softmax CE is
+        # softplus(l_other - l_target).
+        d = preds["dir"][..., 1] - preds["dir"][..., 0]
+        ce = F.softplus(torch.where(assign.dir_targets == 1, -d, d))
+        dir_ce = torch.where(pos, ce, 0.0).sum() / num_pos
+
+        w = self.loss_weights
+        total = (w["cls"] * cls_loss + w["loc"] * loc_loss
+                 + w["dir"] * dir_ce)
+        aux = {
+            "cls_loss": cls_loss,
+            "loc_loss": loc_loss,
+            "dir_loss": dir_ce,
+            "num_pos": num_pos_sum / pos.shape[0],
+        }
+        return total, aux
+
+    # -- inference ---------------------------------------------------------
 
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:

@@ -12,12 +12,15 @@ every key onto the port's ``state_dict`` names and layouts:
   does not flip the kernel, ``conv_transpose2d`` does);
 * everything else (encoder kernel (9, C), BN scale/bias/mean/var, head
   biases) as it is.
+
+``to_flax_arrays`` is the way back, for comparing gradients, updated
+parameters and running statistics with the JAX package name by name.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -75,3 +78,48 @@ def load_weights_npz(model: nn.Module, path: str) -> nn.Module:
         state = convert_flax_arrays({k: data[k] for k in data.files})
     model.load_state_dict(state, strict=True)
     return model
+
+
+_BUFFERS = ("mean", "var")
+
+
+def _flax_key(name: str) -> str:
+    """``state_dict`` name -> flat flax key."""
+    col = "batch_stats" if name.rsplit(".", 1)[1] in _BUFFERS else "params"
+    part, _, rest = name.partition(".")
+    if part == "encoder":
+        return f"{col}/FusedPillarEncoder_0/{rest}"
+    if part == "head":
+        conv, leaf = rest.split(".")
+        flax_conv = {v: k for k, v in _HEAD.items()}[conv]
+        return (f"params/AnchorHead_0/{flax_conv}/"
+                f"{'kernel' if leaf == 'weight' else 'bias'}")
+    _, i, leaf = rest.split(".")                   # backbone.layers.<i>.<leaf>
+    return f"{col}/BEVBackbone_0/ConvBNRelu_{i}/" + (
+        "{conv}/kernel" if leaf == "weight" else f"BatchNorm_0/{leaf}")
+
+
+def to_flax_arrays(model: nn.Module,
+                   tensors: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`convert_flax_arrays`: the model's
+    ``state_dict`` as flat ``params/...`` and ``batch_stats/...`` numpy
+    arrays in flax layouts. ``tensors`` (same names and layouts as the
+    ``state_dict``, e.g. the parameters' gradients) is converted instead
+    when given."""
+    transposed = {f"backbone.layers.{i}.weight"
+                  for i, layer in enumerate(model.backbone.layers)
+                  if layer.transpose}
+    out = {}
+    for name, t in (model.state_dict() if tensors is None
+                    else tensors).items():
+        t = t.detach().cpu().float()
+        key = _flax_key(name)
+        if name in transposed:                     # undo flip and permute
+            t = t.flip(2, 3).permute(2, 3, 0, 1)
+            key = key.format(conv="ConvTranspose_0")
+        elif t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+            key = key.format(conv="Conv_0")
+        out[key] = t.contiguous().numpy()
+    return out

@@ -118,7 +118,7 @@ def _port_encoder(v, dtype):
     state = {k: torch.from_numpy(np.array(a)) for k, a in
              {**v["params"], **v["batch_stats"]}.items()}
     enc.load_state_dict(state, strict=True)
-    return enc
+    return enc.eval()        # inference: the fused kernel's path
 
 
 def test_encoder_matches_jax_reference_path():

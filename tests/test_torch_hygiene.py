@@ -57,3 +57,26 @@ def test_no_silent_cpu_fallback():
     pipe = lisec_tpu_torch.build_model(cfg, device="cpu")
     with pytest.raises(ValueError):
         lisec_tpu_torch.infer(pipe, {})            # asks for cuda
+
+
+@pytest.mark.parametrize("asked,same", [
+    ("cpu", True), (torch.device("cpu"), True), ("cpu:0", True),
+    ("cuda", False), ("cuda:0", False)])
+def test_infer_compares_device_type_and_index(asked, same):
+    """``infer`` takes any spelling of the pipeline's device: it compares
+    the type and the resolved index, not the ``torch.device`` objects
+    (``torch.device("cuda") != torch.device("cuda:0")``)."""
+    from lisec_tpu_torch.pipelines.base import same_device
+    cfg = lisec_tpu_torch.load_config(
+        os.path.join(ROOT, "configs", "pointpillars_tiny.yaml"))
+    pipe = lisec_tpu_torch.build_model(cfg, device="cpu")
+    assert same_device(asked, pipe.device) is same
+    batch = {"points": torch.zeros((1, cfg.budget.max_points, 4)),
+             "point_mask": torch.zeros((1, cfg.budget.max_points),
+                                       dtype=torch.bool)}
+    if same:
+        out = lisec_tpu_torch.infer(pipe, batch, device=asked)
+        assert out["boxes"].shape == (1, cfg.budget.nms_post, 7)
+    else:
+        with pytest.raises(ValueError):
+            lisec_tpu_torch.infer(pipe, batch, device=asked)

@@ -74,6 +74,7 @@ def test_conv_mapping(kernel, stride, transpose):
     flat = _flat(v, "BEVBackbone_0/ConvBNRelu_0/")
     port = ConvBNRelu(6, 5, kernel, stride, transpose=transpose)
     _load(port, convert_flax_arrays(flat), "backbone.layers.0.")
+    port.eval()                   # running statistics, as flax's default
     with torch.no_grad():
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
     got = got.permute(0, 2, 3, 1).numpy()
@@ -121,6 +122,7 @@ def test_backbone_and_head_match_flax():
     head = AnchorHead(24, num_classes=2, num_anchors_per_cell=4)
     _load(backbone, state, "backbone.")
     _load(head, state, "head.")
+    backbone.eval()
     with torch.no_grad():
         got = head(backbone(torch.from_numpy(x).permute(0, 3, 1, 2)))
     for k in ("cls", "box", "dir"):
