@@ -12,6 +12,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    clouds at KITTI geometry; ``segment_paint`` in its three channel
    splits, ``segment_unpaint``, and ``segment_max_sorted`` forward and
    backward (f32 inputs, and bf16-valued inputs full of ties);
+   ``spread_accumulate`` on the rulebooks of ray-cast scenes at SECOND's
+   full width and on edge cases, bit for bit, and the sparse conv's
+   ``Function`` forward and backward;
 3. drive the inference path: full-width PointPillars inference
    (``configs/pointpillars_kitti.yaml``, bf16) with the trained snapshot
    ``weights/pointpillars_fixture_hard.npz`` on 8 ray-cast scenes, with
@@ -26,10 +29,19 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    the first step's loss and gradients again with the paint and unpaint
    wrappers swapped for their plain versions; then a short
    ``lisec_tpu_torch.train(cfg)`` from seed initialisation;
-5. time the predict at batch 8 and 32, the train step and its parts at
-   batch 4, and every kernel, its plain version and its glue at the main
-   paths' shapes, with CUDA events;
-6. print the ``{"kernels": [...]}`` line, the card's name and power
+5. drive SECOND serving (``configs/second_kitti.yaml`` at full width,
+   bf16, seed-initialised weights, 8 ray-cast scenes) through
+   ``build_model`` and ``infer`` with the launch counts set to 0 just
+   before and read just after, and hold the kernel route against the
+   plain route; drive SECOND training
+   (``configs/second_fixture_conv.yaml`` at full width, batch 4) the same
+   way as phase 4;
+6. time the PointPillars predict at batch 8 and 32, the SECOND predict
+   at batch 1 and 8 with its stages, both train steps and their parts at
+   batch 4, and every kernel, its plain version, its glue and (where one
+   exists) the PyTorch call for the same function at the main paths'
+   shapes, with CUDA events;
+7. print the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the rest of the repository; without either it
@@ -46,10 +58,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KITTI_CFG = os.path.join(ROOT, "configs", "pointpillars_kitti.yaml")
 TINY_CFG = os.path.join(ROOT, "configs", "pointpillars_tiny.yaml")
+SECOND_TINY_CFG = os.path.join(ROOT, "configs", "second_tiny.yaml")
 TRAIN_CFG = os.path.join(ROOT, "configs",
                          "pointpillars_fixture_hard_conv.yaml")
 WEIGHTS = os.path.join(ROOT, "weights", "pointpillars_fixture_hard.npz")
-KERNEL_SOURCES = ("encoder_kernel", "segment_paint", "segment_unpaint")
+SECOND_CFG = os.path.join(ROOT, "configs", "second_kitti.yaml")
+SECOND_TRAIN_CFG = os.path.join(ROOT, "configs", "second_fixture_conv.yaml")
+KERNEL_SOURCES = ("encoder_kernel", "segment_paint", "segment_unpaint",
+                  "spread_accumulate")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 
@@ -322,15 +338,18 @@ def phase_segment_kernel_check(gen):
 
 
 @contextlib.contextmanager
-def swapped_segment_ops(paint, unpaint):
-    """Swap ``segment_paint`` and ``segment_unpaint`` in the modules that
-    call them, here only: the package has no switch on the card."""
+def swapped_segment_ops(paint, unpaint, spread):
+    """Swap ``segment_paint``, ``segment_unpaint`` and
+    ``spread_accumulate`` in the modules that call them, here only: the
+    package has no switch on the card."""
     from lisec_tpu_torch.models import pillar_encoder
-    from lisec_tpu_torch.ops import scatter
+    from lisec_tpu_torch.ops import scatter, sparse_conv, voxelize
     from lisec_tpu_torch.training import assigner
-    new = {"segment_paint": paint, "segment_unpaint": unpaint}
+    new = {"segment_paint": paint, "segment_unpaint": unpaint,
+           "spread_accumulate": spread}
     saved = [(mod, name, getattr(mod, name))
-             for mod in (pillar_encoder, scatter, assigner)
+             for mod in (pillar_encoder, scatter, assigner, voxelize,
+                         sparse_conv)
              for name in new if hasattr(mod, name)]
     for mod, name, _ in saved:
         setattr(mod, name, new[name])
@@ -345,8 +364,10 @@ def plain_segment_ops():
     """The callers on the kernels' plain PyTorch versions."""
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     return swapped_segment_ops(sp.segment_paint_reference,
-                               su.segment_unpaint_reference)
+                               su.segment_unpaint_reference,
+                               sa.spread_accumulate_reference)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -442,22 +463,36 @@ def phase_main_path(pipe, cfg):
     return launches, err
 
 
-def phase_tiny_vs_cpu():
-    """The small config on the card against the same on the CPU (the
-    CPU path is the one the tests hold against the JAX package)."""
+def phase_tiny_vs_cpu(name, cfg_path, keep_sets):
+    """A small config on the card against the same on the CPU (the CPU
+    path is the one the tests hold against the JAX package): the head
+    maps to 1e-4 and, with ``keep_sets``, the predict's outputs. (The
+    seed-initialised second_tiny scores lie closer together than the two
+    devices' f32 sums differ, so the order of its candidates, and with it
+    the keep set, is not determined.)"""
     import torch
     from lisec_tpu_torch.api import build_model, infer, load_config
     from lisec_tpu_torch.config import apply_overrides
     # Score threshold 0: the random weights' scores sit near the head's
     # prior, and every candidate then goes through NMS.
-    cfg = apply_overrides(load_config(TINY_CFG),
+    cfg = apply_overrides(load_config(cfg_path),
                           ["model.params.score_threshold=0.0"])
     batch, _ = scene_batch(cfg, 4)
-    outs = [{k: v.cpu() for k, v in infer(build_model(cfg, d), batch,
-                                           d).items()}
-            for d in ("cuda", "cpu")]
-    same_outputs(outs[0], outs[1], "pointpillars_tiny cuda vs cpu", 1e-4)
-    emit("tiny_vs_cpu", kept_per_cloud=outs[0]["valid"].sum(1).tolist())
+    outs, maps = [], []
+    for d in ("cuda", "cpu"):
+        pipe = build_model(cfg, d)
+        outs.append({k: v.cpu() for k, v in infer(pipe, batch, d).items()})
+        with torch.no_grad():
+            maps.append({k: v.cpu() for k, v in pipe.model(
+                *pipe._model_args(pipe.device_batch(batch))).items()})
+    diffs = {k: float((maps[0][k] - maps[1][k]).abs().max()) for k in maps[0]}
+    if max(diffs.values()) > 1e-4:
+        raise AssertionError(f"{name} cuda vs cpu head maps: {diffs}")
+    if keep_sets:
+        same_outputs(outs[0], outs[1], f"{name} cuda vs cpu", 1e-4)
+    emit("tiny_vs_cpu", config=name, head_map_max_abs_diff=diffs,
+         keep_sets_compared=keep_sets,
+         kept_per_cloud=outs[0]["valid"].sum(1).tolist())
 
 
 # -- phase 4: the training path ---------------------------------------------
@@ -465,10 +500,10 @@ def phase_tiny_vs_cpu():
 TRAIN_STEPS = 3
 
 
-def train_config(num_steps, log_every=1):
-    """The full-width training config; the overrides are no widths."""
+def train_config(path, num_steps, log_every=1):
+    """A full-width training config; the overrides are no widths."""
     from lisec_tpu_torch.config import apply_overrides, load_config
-    return apply_overrides(load_config(TRAIN_CFG), [
+    return apply_overrides(load_config(path), [
         "data.augment.enabled=false", 'train.ckpt_dir=""',
         f"train.num_steps={num_steps}", f"train.log_every={log_every}"])
 
@@ -476,13 +511,16 @@ def train_config(num_steps, log_every=1):
 def segment_launches():
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
-    return {"segment_paint": sp.LAUNCHES, "segment_unpaint": su.LAUNCHES}
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    return {"segment_paint": sp.LAUNCHES, "segment_unpaint": su.LAUNCHES,
+            "spread_accumulate": sa.LAUNCHES}
 
 
 def zero_segment_launches():
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
-    sp.LAUNCHES = su.LAUNCHES = 0
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    sp.LAUNCHES = su.LAUNCHES = sa.LAUNCHES = 0
 
 
 def loss_and_grads(pipe, batch):
@@ -497,20 +535,23 @@ def loss_and_grads(pipe, batch):
             {n: p.grad.clone() for n, p in pipe.model.named_parameters()})
 
 
-def phase_train_path():
-    """Full-width train steps from the trained snapshot through
-    ``train_step``, their launch counts and checks; the first step's loss
-    and gradients again over the plain paint / unpaint; then a short
-    ``lisec_tpu_torch.train`` from seed initialisation."""
+def phase_train_path(name, cfg_path, weights, per_step):
+    """Full-width train steps of config ``name`` through ``train_step``
+    (from the snapshot ``weights``, or from seed initialisation), their
+    launch counts (``per_step`` of each kernel) and checks; the first
+    step's loss and gradients again over the kernels' plain versions;
+    then a short ``lisec_tpu_torch.train`` from seed initialisation whose
+    loss falls."""
     import torch
     import lisec_tpu_torch
     from lisec_tpu_torch.api import build_model
     from lisec_tpu_torch.data.collate import make_batches
     from lisec_tpu_torch.weights import load_weights_npz
-    cfg = train_config(TRAIN_STEPS)
+    cfg = train_config(cfg_path, TRAIN_STEPS)
     pipe = build_model(cfg)
     pipe.init_state(cfg.train.seed)
-    load_weights_npz(pipe.model, WEIGHTS)
+    if weights:
+        load_weights_npz(pipe.model, weights)
     batches = make_batches(pipe.make_dataset("train"), cfg.budget,
                            cfg.train.batch_size, shuffle=True,
                            seed=cfg.train.seed)
@@ -523,10 +564,10 @@ def phase_train_path():
                  for i in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = segment_launches()
-    if launches["segment_paint"] < 3 * TRAIN_STEPS \
-            or launches["segment_unpaint"] < TRAIN_STEPS:
-        raise AssertionError(f"train path launches {launches} in "
-                             f"{TRAIN_STEPS} steps")
+    if launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"{name}: train path launches {launches} in "
+                             f"{TRAIN_STEPS} steps, expected {per_step} "
+                             "a step")
     auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
     for a in auxes:
         if not all(v == v and abs(v) != float("inf") for v in a.values()):
@@ -544,15 +585,16 @@ def phase_train_path():
                              f"{TRAIN_STEPS} steps: {stuck}")
     if pipe.step != TRAIN_STEPS:
         raise AssertionError(f"optimizer count {pipe.step}")
-    emit("train_path", config="pointpillars_fixture_hard_conv",
+    emit("train_path", config=name,
          batch=cfg.train.batch_size, steps=TRAIN_STEPS, launches=launches,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
          per_step=auxes, tensors_moved=len(start))
 
     # The first step's loss and gradients, kernels against plain
     # versions. cuDNN is held to deterministic algorithms so that the
-    # two runs differ by the segment ops alone; those are exact (max,
-    # gather) or equal to the last f32 bit (f64 sums), so: loss within
+    # two runs differ by the kernels alone; those are exact (max, gather,
+    # the spread's ordered f32 sum) or equal to the last f32 bit (f64
+    # sums), so: loss within
     # 1e-5 relative, every gradient within 1e-3 of its own L2 norm.
     torch.backends.cudnn.deterministic = True
     pipe.model.load_state_dict(start)
@@ -562,7 +604,7 @@ def phase_train_path():
     with plain_segment_ops():
         loss_p, pos_p, grads_p = loss_and_grads(pipe, first)
     if segment_launches() != before:
-        raise AssertionError("the plain run launched a segment kernel")
+        raise AssertionError("the plain run launched a kernel")
     torch.backends.cudnn.deterministic = False
     if float(pos_k) != float(pos_p):
         raise AssertionError(f"num_pos {float(pos_k)} vs {float(pos_p)}")
@@ -571,21 +613,21 @@ def phase_train_path():
         raise AssertionError(f"loss {float(loss_k)} vs plain "
                              f"{float(loss_p)}")
     worst, worst_name = 0.0, ""
-    for name, gk in grads_k.items():
-        gp = grads_p[name]
+    for pname, gk in grads_k.items():
+        gp = grads_p[pname]
         rel = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
         if rel > worst:
-            worst, worst_name = rel, name
+            worst, worst_name = rel, pname
     if worst > 1e-3:
         raise AssertionError(f"gradient of {worst_name}: relative L2 "
                              f"difference {worst} from the plain run")
-    emit("train_vs_plain", loss=float(loss_k), plain_loss=float(loss_p),
+    emit("train_vs_plain", config=name, loss=float(loss_k), plain_loss=float(loss_p),
          loss_rel_diff=rel_loss, num_pos=float(pos_k),
          worst_grad_rel_l2=worst, worst_grad=worst_name,
          gradients=len(grads_k))
 
     # The normal entry point, from seed initialisation.
-    short = train_config(8, log_every=2)
+    short = train_config(cfg_path, 8, log_every=2)
     with torch.enable_grad():
         trained, history = lisec_tpu_torch.train(short, progress=False)
     torch.cuda.synchronize()
@@ -596,7 +638,13 @@ def phase_train_path():
         if not all(v == v and abs(v) != float("inf")
                    for v in rec.values()):
             raise AssertionError(f"train(): non-finite {rec}")
-    emit("train_entry_point", steps=8,
+    # Batches differ, so single steps jitter: the mean of the last two
+    # logged losses against the first step's.
+    if not (history[-1]["loss"] + history[-2]["loss"]) / 2 \
+            < history[0]["loss"]:
+        raise AssertionError(f"{name}: train() loss did not fall: "
+                             f"{[r['loss'] for r in history]}")
+    emit("train_entry_point", config=name, steps=8,
          loss_per_logged_step={r["step"]: r["loss"] for r in history},
          lr={r["step"]: r["lr"] for r in history})
     pipe.model.load_state_dict(start)
@@ -629,12 +677,56 @@ def unpaint_bound(table, ids):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
 
 
-def phase_train_timing(pipe, cfg, batch):
-    """The train step and its parts at batch 4, and both segment kernels
-    on the very tensors one train step hands them."""
+def spread_bound(vals, targets, num_out):
+    """Least ms: every id and the value rows this run's ids land in the
+    table read once (a dropped row's values are never needed), the table
+    written once, over the memory rate; one add per landed row-channel
+    over the f32 rate."""
+    b, _, _, c = vals.shape
+    landed = int(((targets >= 0) & (targets < num_out)).sum())
+    nbytes = (targets.nbytes + landed * c * vals.element_size()
+              + b * num_out * c * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = landed * c / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, landed
+
+
+def spread_call_row(vals, targets, num_out):
+    """One ``spread_accumulate`` call timed on the tensors a path handed
+    it: the kernel, its plain version, its bound, and ``index_add_`` as
+    the one PyTorch call for the same function (f32 atomics in no fixed
+    order; it takes f32 values, so a bf16 stream's conversion is timed
+    with it)."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    b, k, n, c = vals.shape
+    bound, by, nbytes, landed = spread_bound(vals, targets, num_out)
+    rows = (torch.where((targets < 0) | (targets >= num_out), num_out,
+                        targets).long()
+            + torch.arange(b, device="cuda")[:, None, None] * (num_out + 1)
+            ).reshape(-1)
+    flat = vals.reshape(-1, c)
+    return dict(
+        vals=list(vals.shape), dtype=str(vals.dtype), num_out=num_out,
+        rows_landed=landed, rows_total=b * k * n,
+        ms=cuda_ms(lambda: sa.spread_accumulate(vals, targets,
+                                                num_out=num_out), 20),
+        plain_ms=cuda_ms(lambda: sa.spread_accumulate_reference(
+            vals, targets, num_out=num_out), 3),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (b * (num_out + 1), c), device="cuda").index_add_(
+                0, rows, flat.float()), 10),
+        bound_ms=bound, bound_by=by, bytes=nbytes)
+
+
+def phase_train_timing(name, pipe, cfg, batch):
+    """The train step of config ``name`` and its parts at batch 4, and
+    the kernels on the very tensors one train step hands them."""
     import torch
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     b = cfg.train.batch_size
     with torch.enable_grad():
         ms_step = cuda_ms(lambda: pipe.train_step(batch), iters=5)
@@ -653,7 +745,7 @@ def phase_train_timing(pipe, cfg, batch):
             pipe.model.train()
             pipe.optimizer.zero_grad()
             ev[0].record()
-            preds = pipe.model(dev["points"], dev["point_mask"])
+            preds = pipe.model(*pipe._model_args(dev))
             ev[1].record()
             loss, _ = pipe.loss_terms(preds, pipe.assign(dev))
             ev[2].record()
@@ -665,14 +757,15 @@ def phase_train_timing(pipe, cfg, batch):
             if it >= 2:
                 for i, k in enumerate(parts):
                     parts[k] += ev[i].elapsed_time(ev[i + 1]) / 5
-    emit("train_step", config="pointpillars_fixture_hard_conv", batch=b,
+    emit("train_step", config=name, batch=b,
          ms_per_step=ms_step, clouds_per_s=b * 1e3 / ms_step,
          host_clock_ms_per_step=host_ms,
          host_clock_clouds_per_s=b * 1e3 / host_ms,
          **{f"{k}_ms": v for k, v in parts.items()})
 
-    # Record what one forward and backward hands the two wrappers.
-    calls = {"segment_paint": [], "segment_unpaint": []}
+    # Record what one forward and backward hands the wrappers.
+    calls = {"segment_paint": [], "segment_unpaint": [],
+             "spread_accumulate": []}
 
     def rec_paint(vals, ids, *, num_cells, num_max, split=None):
         calls["segment_paint"].append((vals.detach(), ids, num_cells,
@@ -684,9 +777,14 @@ def phase_train_timing(pipe, cfg, batch):
         calls["segment_unpaint"].append((table.detach(), ids))
         return su.segment_unpaint(table, ids)
 
-    with swapped_segment_ops(rec_paint, rec_unpaint):
+    def rec_spread(vals, targets, *, num_out):
+        calls["spread_accumulate"].append((vals.detach(), targets, num_out))
+        return sa.spread_accumulate(vals, targets, num_out=num_out)
+
+    with swapped_segment_ops(rec_paint, rec_unpaint, rec_spread):
         loss_and_grads(pipe, batch)
-    rows = {}
+    rows = {"spread_accumulate": [spread_call_row(*call) for call
+                                  in calls["spread_accumulate"]]}
 
     per_call = []
     for vals, ids, nc, num_max, split in calls["segment_paint"]:
@@ -735,9 +833,9 @@ def phase_train_timing(pipe, cfg, batch):
             library_ms=cuda_ms(lambda: torch.gather(table, 1, idx), 20),
             bound_ms=bound, bound_by=by, bytes=nbytes))
     rows["segment_unpaint"] = per_call
-    for name, per_call in rows.items():
+    for kernel, per_call in rows.items():
         for i, call in enumerate(per_call):
-            emit("train_kernel", kernel=name, call=i, **call)
+            emit("train_kernel", config=name, kernel=kernel, call=i, **call)
     return rows
 
 
@@ -846,6 +944,315 @@ def phase_timing(pipe, cfg):
     return rows[8]
 
 
+# -- SECOND: the spread kernel, serving, timing -------------------------------
+
+def recorded_sparse_convs(pipe, dev):
+    """One eval forward on a device batch with a hook on every sparse
+    conv: [(layer, feats, out_of, valid)] in the encoder's order."""
+    import torch
+    seen = []
+    hooks = [layer.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod,) + tuple(args)))
+        for layer in pipe.model.encoder.sparse]
+    pipe.model.eval()
+    with torch.no_grad():
+        pipe.model(*pipe._model_args(dev))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def phase_spread_kernel_check(pipe, cfg, gen):
+    """``spread_accumulate`` on the card against its plain version, bit
+    for bit and twice: on the scatter rulebooks of ray-cast scenes at
+    SECOND's full width, on edge cases, and through the sparse conv's
+    ``Function`` forward and backward. Returns the largest |difference|
+    from the plain version that it saw."""
+    import torch
+    from lisec_tpu_torch.ops import sparse_conv
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    batch, _ = scene_batch(cfg, 4)
+    convs = recorded_sparse_convs(pipe, pipe.device_batch(batch))
+    if len(convs) != 9:
+        raise AssertionError(f"{len(convs)} sparse convs recorded")
+    gen = torch.Generator(device="cuda").manual_seed(gen.initial_seed())
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    worst = 0.0
+
+    def check(what, vals, targets, num_out):
+        nonlocal worst
+        got = sa.spread_accumulate(vals, targets, num_out=num_out)
+        torch.cuda.synchronize()
+        ref = sa.spread_accumulate_reference(vals, targets, num_out=num_out)
+        again = sa.spread_accumulate(vals, targets, num_out=num_out)
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"spread_accumulate {what}: {int((got != ref).sum())} "
+                f"elements differ from the plain version, max |d| {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"spread_accumulate {what}: two runs "
+                                 "differ")
+        landed = (targets >= 0) & (targets < num_out)
+        idx = torch.where(landed, targets, num_out).long().flatten(1)
+        hits = torch.zeros((vals.shape[0], num_out + 1), device="cuda")
+        hits.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
+        emit("kernel_check", kernel="spread_accumulate", case=what,
+             vals=list(vals.shape), dtype=str(vals.dtype), num_out=num_out,
+             rows_landed=int(landed.sum()), rows_total=targets.numel(),
+             most_offsets_on_one_row=int(hits[:, :num_out].max()),
+             output_rows_hit=int((hits[:, :num_out] > 0).sum()),
+             bit_equal=True, two_runs_identical=True, max_abs_err=err)
+        return got
+
+    # Level-0 submanifold (N 16,000, C 16), level-2 submanifold (N 26,624,
+    # C 64) and the strided conv into level 3 (26,624 -> 18,432 rows).
+    for what, i in (("level0_subm", 0), ("level2_subm", 6),
+                    ("level2_down", 8)):
+        layer, _, out_of, valid = convs[i]
+        b, k, n = out_of.shape
+        c = layer.weight.shape[2]
+        for dtype in (torch.bfloat16, torch.float32):
+            check(what, randn((b, k, n, c), dtype), out_of, valid.shape[1])
+
+    b, k, n, num_out = 2, 27, 4096, 4096
+    ident = torch.arange(n, dtype=torch.int32).expand(b, k, n).contiguous()
+    last = torch.full((b, k, n), -1, dtype=torch.int32)
+    last[:, :, 17] = num_out - 1
+    for what, targets, c in (
+            ("all_rows_dropped", ident + num_out, 16),
+            ("all_rows_dropped_negative", ident - n, 16),
+            ("every_output_hit_by_all_offsets", ident, 64),
+            ("all_streams_onto_the_last_row", last, 32),
+            ("one_channel", ident.flip(2).contiguous(), 1),
+            ("odd_channels", ident, 5)):
+        for dtype in (torch.bfloat16, torch.float32):
+            got = check(what, randn((b, k, n, c), dtype), targets.cuda(),
+                        num_out)
+            if "dropped" in what and got.any():
+                raise AssertionError(f"{what}: a dropped row landed")
+            if what == "all_streams_onto_the_last_row" and (
+                    got[:, :-1].any() or not got[:, -1].any()):
+                raise AssertionError(f"{what}: rows beside the last")
+
+    # The conv's Function, kernels against plain versions: the same
+    # products around them, so the forward must be bit-equal; the
+    # backward's two products take the gathered rows, bit-equal too, and
+    # are held to 1e-6 of their L2 norm.
+    for i in (0, 8):
+        layer, feats, out_of, valid = convs[i]
+        g = randn((feats.shape[0], valid.shape[1], layer.weight.shape[2]),
+                  torch.float32)
+        outs = []
+        for plain in (False, True):
+            x = feats.to(layer.dtype).detach().clone().requires_grad_()
+            w = layer.weight.detach().to(layer.dtype).requires_grad_()
+            with torch.enable_grad(), (plain_segment_ops() if plain
+                                       else contextlib.nullcontext()):
+                y = sparse_conv.sparse_conv3d_spread(
+                    x, out_of, w, v_out=valid.shape[1])
+                (y * g).sum().backward()
+            torch.cuda.synchronize()
+            outs.append((y.detach(), x.grad.float(), w.grad.float()))
+        if not torch.equal(outs[0][0], outs[1][0]):
+            raise AssertionError(f"sparse conv {i}: forward differs from "
+                                 "the plain Function")
+        rel = [float((a - p).norm() / p.norm().clamp_min(1e-30))
+               for a, p in zip(outs[0][1:], outs[1][1:])]
+        if max(rel) > 1e-6:
+            raise AssertionError(f"sparse conv {i}: gradients differ from "
+                                 f"the plain Function by {rel}")
+        emit("kernel_check", kernel="sparse_conv3d_spread", conv=i,
+             features=list(feats.shape), out_rows=valid.shape[1],
+             forward="bit-equal", grad_rel_l2=rel,
+             backward_bit_equal=all(torch.equal(a, p) for a, p in
+                                    zip(outs[0][1:], outs[1][1:])))
+    return worst
+
+
+SECOND_LAUNCHES_PER_PREDICT = {"segment_paint": 2, "segment_unpaint": 0,
+                               "spread_accumulate": 9}
+SECOND_LAUNCHES_PER_TRAIN_STEP = {"segment_paint": 3, "segment_unpaint": 10,
+                                  "spread_accumulate": 9}
+POINTPILLARS_LAUNCHES_PER_TRAIN_STEP = {
+    "segment_paint": 3, "segment_unpaint": 3, "spread_accumulate": 0}
+
+
+def phase_second_serving(pipe, cfg):
+    """SECOND serving at full width through ``infer``: launch counts,
+    output checks, per-level active counts, and the kernel route against
+    the plain route (head maps; keep sets with the score threshold at 0
+    so that NMS has work)."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    batch, _ = scene_batch(cfg, 8)
+    zero_segment_launches()
+    out = infer(pipe, batch)
+    torch.cuda.synchronize()
+    launches = segment_launches()
+    if launches != SECOND_LAUNCHES_PER_PREDICT:
+        raise AssertionError(f"second predict launches {launches}, "
+                             f"expected {SECOND_LAUNCHES_PER_PREDICT}")
+    for k in ("boxes", "scores"):
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"second predict: non-finite {k}")
+    if out["boxes"].shape != (8, cfg.budget.nms_post, 7):
+        raise AssertionError(f"second predict: boxes "
+                             f"{tuple(out['boxes'].shape)}")
+
+    dev = pipe.device_batch(batch)
+    convs = recorded_sparse_convs(pipe, dev)
+    enc = pipe.model.encoder
+    # Level l's list is what its first conv takes; the last sparse conv's
+    # output list is the first dense level's.
+    counts = [(convs[3 * lv][2][:, 13] >= 0).sum(1).tolist()
+              for lv in range(enc.dense_from)]
+    counts.append(convs[-1][3].sum(1).tolist())
+
+    def head_maps():
+        with torch.no_grad():
+            return pipe.model(*pipe._model_args(dev))
+    maps_k = head_maps()
+    threshold, pipe.score_thr = pipe.score_thr, 0.0
+    out_k = infer(pipe, batch)
+    before = segment_launches()
+    with plain_segment_ops():
+        maps_p = head_maps()
+        out_p = infer(pipe, batch)
+    if segment_launches() != before:
+        raise AssertionError("the plain route launched a kernel")
+    pipe.score_thr = threshold
+    diffs = {k: float((maps_k[k] - maps_p[k]).abs().max()) for k in maps_k}
+    if max(diffs.values()) > 1e-3:
+        raise AssertionError(f"second head maps differ: {diffs}")
+    if not out_k["valid"].any():
+        raise AssertionError("second predict at threshold 0: no box kept")
+    same_outputs(out_k, out_p, "second kernel vs plain route", 1e-3)
+    emit("second_main_path", config="second_kitti", batch=8,
+         launches=launches, voxels_and_active_per_level=counts,
+         budgets=list(enc.level_budgets),
+         kept_per_cloud=out["valid"].sum(1).tolist(),
+         kept_per_cloud_at_threshold_0=out_k["valid"].sum(1).tolist(),
+         head_map_max_abs_diff_vs_plain=diffs,
+         head_maps_bit_equal=all(torch.equal(maps_k[k], maps_p[k])
+                                 for k in maps_k))
+    return launches
+
+
+class EventTimer:
+    """CUDA-event spans around wrapped callables, summed by name."""
+
+    def __init__(self):
+        self.spans = {}
+
+    def wrap(self, name, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            self.spans.setdefault(name, []).append((start, stop))
+            return out
+        return timed
+
+    def ms_per_run(self, runs):
+        import torch
+        torch.cuda.synchronize()
+        return {name: sum(a.elapsed_time(b) for a, b in spans) / runs
+                for name, spans in self.spans.items()}
+
+
+def second_stage_ms(pipe, dev, runs=5):
+    """Mean ms of a device-resident predict's stages, by events around
+    the pipeline's own calls (wrapped here only)."""
+    import torch
+    from lisec_tpu_torch.models import second
+    model = pipe.model
+    timer = EventTimer()
+    wrapped = [(pipe, "_model_args", "voxelize"), (model, "forward", "model"),
+               (model.encoder, "forward", "encoder"),
+               (model.backbone, "forward", "backbone_head"),
+               (model.head, "forward", "backbone_head")]
+    wrapped += [(m, "forward", "sparse_convs") for m in model.encoder.sparse]
+    wrapped += [(m, "forward", "dense_tail") for m in model.encoder.dense]
+    functions = {"build_scatter_rulebook": "rulebooks",
+                 "build_output_coords": "rulebooks",
+                 "build_footprint_coords": "rulebooks",
+                 "segment_sum_dense": "densify"}
+    saved = {f: getattr(second, f) for f in functions}
+
+    def run():
+        with torch.no_grad():
+            pipe.predict(dev)
+    run()
+    run()
+    try:
+        for obj, attr, name in wrapped:
+            setattr(obj, attr, timer.wrap(name, getattr(obj, attr)))
+        for f, name in functions.items():
+            setattr(second, f, timer.wrap(name, saved[f]))
+        total = cuda_ms(run, iters=runs, warmup=0)
+    finally:
+        for obj, attr, _ in wrapped:
+            delattr(obj, attr)
+        for f, fn in saved.items():
+            setattr(second, f, fn)
+    ms = timer.ms_per_run(runs)
+    ms["decode_nms"] = total - ms["voxelize"] - ms["model"]
+    ms["predict"] = total
+    return ms
+
+
+def phase_second_timing(pipe, cfg):
+    """SECOND predict at batch 1 and 8 (from host numpy, device-resident,
+    by stage) and every ``spread_accumulate`` call of one predict on the
+    tensors the path hands it. Returns the batch-8 calls."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    rows = {}
+    for b in (1, 8):
+        batch, _ = scene_batch(cfg, b)
+        ms = cuda_ms(lambda: infer(pipe, batch), iters=10)
+        dev = pipe.device_batch(batch)
+        stages = second_stage_ms(pipe, dev)
+        with torch.no_grad():
+            ms_dev = cuda_ms(lambda: pipe.predict(dev), iters=10)
+        threshold, pipe.score_thr = pipe.score_thr, 0.0
+        with torch.no_grad():
+            ms_dev_nms = cuda_ms(lambda: pipe.predict(dev), iters=5)
+        pipe.score_thr = threshold
+        emit("second_predict", config="second_kitti", batch=b,
+             ms_per_batch=ms, clouds_per_s=b * 1e3 / ms,
+             device_resident_ms=ms_dev,
+             device_resident_clouds_per_s=b * 1e3 / ms_dev,
+             device_resident_ms_at_threshold_0=ms_dev_nms,
+             stages_ms=stages)
+
+        calls = []
+
+        def rec_spread(vals, targets, *, num_out):
+            calls.append((vals, targets, num_out))
+            return sa.spread_accumulate(vals, targets, num_out=num_out)
+        with swapped_segment_ops(sp.segment_paint, su.segment_unpaint,
+                                 rec_spread), torch.no_grad():
+            pipe.predict(dev)
+        rows[b] = [spread_call_row(*call) for call in calls]
+        for i, call in enumerate(rows[b]):
+            emit("second_kernel", kernel="spread_accumulate", batch=b,
+                 call=i, **call)
+    return rows[8]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -857,6 +1264,7 @@ def main() -> int:
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     from lisec_tpu_torch.weights import load_weights_npz
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -868,40 +1276,71 @@ def main() -> int:
     phase_build()
     phase_kernel_check(gen)
     seg_err = phase_segment_kernel_check(gen)
+    second_cfg = load_config(SECOND_CFG)
+    second_pipe = build_model(second_cfg)          # weights from seed 0
+    spread_err = phase_spread_kernel_check(second_pipe, second_cfg, gen)
     cfg = load_config(KITTI_CFG)
     pipe = build_model(cfg)
     load_weights_npz(pipe.model, WEIGHTS)
     launches, err = phase_main_path(pipe, cfg)
-    phase_tiny_vs_cpu()
-    train_pipe, train_cfg, train_batch, train_launches = phase_train_path()
+    phase_tiny_vs_cpu("pointpillars_tiny", TINY_CFG, keep_sets=True)
+    second_launches = phase_second_serving(second_pipe, second_cfg)
+    phase_tiny_vs_cpu("second_tiny", SECOND_TINY_CFG, keep_sets=False)
+    train_pipe, train_cfg, train_batch, train_launches = phase_train_path(
+        "pointpillars_fixture_hard_conv", TRAIN_CFG, WEIGHTS,
+        POINTPILLARS_LAUNCHES_PER_TRAIN_STEP)
+    second_train = phase_train_path(
+        "second_fixture_conv", SECOND_TRAIN_CFG, None,
+        SECOND_LAUNCHES_PER_TRAIN_STEP)
     timing = phase_timing(pipe, cfg)
-    train_rows = phase_train_timing(train_pipe, train_cfg, train_batch)
+    second_calls = phase_second_timing(second_pipe, second_cfg)
+    train_rows = phase_train_timing("pointpillars_fixture_hard_conv",
+                                    train_pipe, train_cfg, train_batch)
+    second_train_rows = phase_train_timing("second_fixture_conv",
+                                           *second_train[:3])
+
+    def summed(per_call):
+        library = [c["library_ms"] for c in per_call]
+        return {
+            "ms": sum(c["ms"] for c in per_call),
+            "plain_ms": sum(c["plain_ms"] for c in per_call),
+            "bound_ms": sum(c["bound_ms"] for c in per_call),
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                       for c in per_call) else "operations",
+            "library_ms": None if None in library else sum(library)}
 
     kernels = [{
         **ek.KERNEL_INFO, "launches": launches, "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}]
-    # The segment kernels: the times of one train step's calls together
-    # (three paints; the unpaints of the decoration and the segment-max
-    # backward), each call also on its own under "calls". No single
-    # PyTorch call computes a table of max and sum channels, so the
-    # paint's library time stands only with its all-sum call.
+    # The segment kernels: the times of one PointPillars train step's
+    # calls together (three paints; the unpaints of the decoration and the
+    # segment-max backward), each call also on its own under "calls". No
+    # single PyTorch call computes a table of max and sum channels, so the
+    # paint's library time stands only with its all-sum call. Their calls
+    # in a SECOND train step stand beside them.
     for mod in (sp, su):
         name = mod.KERNEL_INFO["name"]
-        per_call = train_rows[name]
-        library = [c["library_ms"] for c in per_call]
         kernels.append({
             **mod.KERNEL_INFO, "launches": train_launches[name],
-            "max_abs_err": seg_err[name],
-            "ms": sum(c["ms"] for c in per_call),
-            "plain_ms": sum(c["plain_ms"] for c in per_call),
-            "bound_ms": sum(c["bound_ms"] for c in per_call),
-            "bound_by": "bytes" if all(c["bound_by"] == "bytes"
-                                       for c in per_call) else "operations",
-            "library_ms": None if None in library else sum(library),
+            "max_abs_err": seg_err[name], **summed(train_rows[name]),
             "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
-            "calls": per_call})
+            "launches_per_second_predict": second_launches[name],
+            "launches_per_second_train_step":
+                second_train[3][name] / TRAIN_STEPS,
+            "calls": train_rows[name],
+            "second_train_step": summed(second_train_rows[name])})
+    # The spread kernel: the nine calls of one SECOND predict at batch 8
+    # together; the nine of a train step at batch 4 beside them.
+    name = sa.KERNEL_INFO["name"]
+    kernels.append({
+        **sa.KERNEL_INFO, "launches": second_launches[name],
+        "max_abs_err": spread_err, **summed(second_calls),
+        "launches_per_predict": second_launches[name],
+        "launches_per_train_step": second_train[3][name] / TRAIN_STEPS,
+        "calls": second_calls,
+        "second_train_step": summed(second_train_rows[name])})
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ launch, beside a plain PyTorch version of the same function that the
 wrappers take for CPU tensors.
 
 Ported so far: PointPillars inference (``configs/pointpillars_kitti.yaml``)
-with the fused pillar-encoder kernel, and PointPillars training
+with the fused pillar-encoder kernel, PointPillars training
 (``configs/pointpillars_fixture_hard_conv.yaml``) with the segment paint
-and unpaint kernels. Checkpoints, data-parallel training, host-side
+and unpaint kernels, and SECOND inference and training
+(``configs/second_kitti.yaml``, ``configs/second_fixture_conv.yaml``) with
+the spread-accumulate kernel under its sparse convs. Checkpoints, data-parallel training, host-side
 augmentation and evaluation are not ported yet and raise
 ``NotImplementedError`` when a config asks for them. Public API::
 

@@ -25,15 +25,52 @@ def pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+def batch_norm(xf: torch.Tensor, layer: nn.Module,
+               channel_dim: int) -> torch.Tensor:
+    """flax's ``BatchNorm(momentum=0.99, epsilon=1e-3)`` of f32 ``xf``
+    over every axis but ``channel_dim``, with ``layer``'s ``scale``,
+    ``bias`` and running ``mean`` and ``var``, written out as flax
+    computes it: in ``eval()`` mode with the running statistics; in
+    ``train()`` mode with the batch statistics, the variance as
+    E[x^2] - E[x]^2 clipped at 0, and that biased variance going into the
+    running statistics with momentum 0.99 (``torch.nn.BatchNorm2d``
+    stores the unbiased one). Returns f32; the caller casts."""
+    dims = [d for d in range(xf.dim()) if d != channel_dim % xf.dim()]
+    shape = [1] * xf.dim()
+    shape[channel_dim] = -1
+    if layer.training:
+        mean = xf.mean(dim=dims)
+        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0)
+        with torch.no_grad():
+            layer.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+            layer.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+    else:
+        mean, var = layer.mean, layer.var
+    mul = torch.rsqrt(var + BN_EPS) * layer.scale
+    return (xf - mean.view(shape)) * mul.view(shape) + layer.bias.view(shape)
+
+
+@torch.no_grad()
+def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Fresh weights for a detector: every kernel normal with its
+    module's ``weight_std()`` (flax's initializers without their
+    truncation), drawn on the CPU from ``generator`` in parameter order;
+    BN scales 1, every bias 0, running statistics (0, 1)."""
+    for name, p in model.named_parameters():
+        module, leaf = name.rsplit(".", 1)
+        if p.dim() < 2:
+            p.fill_(1.0 if leaf == "scale" else 0.0)
+            continue
+        std = model.get_submodule(module).weight_std()
+        p.copy_(torch.empty(p.shape).normal_(0.0, std, generator=generator))
+    for name, buf in model.named_buffers():
+        buf.fill_(1.0 if name.endswith("var") else 0.0)
+
+
 class ConvBNRelu(nn.Module):
     """2D conv (or transposed conv) + BatchNorm + ReLU.
 
-    BatchNorm is written out as flax's ``BatchNorm(momentum=0.99,
-    epsilon=1e-3)`` computes it: in ``eval()`` mode with the running
-    statistics; in ``train()`` mode with the batch statistics in f32, the
-    variance as E[x^2] - E[x]^2 clipped at 0, and that biased variance
-    going into the running statistics with momentum 0.99
-    (``torch.nn.BatchNorm2d`` stores the unbiased one).
+    BatchNorm is :func:`batch_norm`.
 
     The conv weight is (out, in, k, k); the transposed conv's is
     (in, out, k, k), already spatially flipped, so that
@@ -63,17 +100,11 @@ class ConvBNRelu(nn.Module):
         else:
             x = F.conv2d(pad_same(x, self.kernel, self.stride), w,
                          stride=self.stride)
-        # flax's BatchNorm computes in f32 and returns the compute dtype.
-        xf = x.float()
-        if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0)
-            with torch.no_grad():
-                self.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-                self.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + BN_EPS) * self.scale
-        y = (xf - mean[:, None, None]) * mul[:, None, None]
-        y = y + self.bias[:, None, None]
-        return torch.relu(y.to(self.dtype))
+        return torch.relu(batch_norm(x.float(), self, 1).to(self.dtype))
+
+    def weight_std(self) -> float:
+        """flax's lecun-normal: variance 1 / fan_in."""
+        w = self.weight
+        fan_in = (w.shape[0] * w.shape[2] * w.shape[3] if self.transpose
+                  else w[0].numel())
+        return fan_in ** -0.5

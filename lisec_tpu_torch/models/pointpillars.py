@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lisec_tpu_torch.models.common import ConvBNRelu
+from lisec_tpu_torch.models.common import ConvBNRelu, reset_parameters
 from lisec_tpu_torch.models.pillar_encoder import FusedPillarEncoder
 
 # Focal-loss prior: bias = -log((1 - pi) / pi) with pi = 0.01.
@@ -69,6 +69,9 @@ class Conv1x1(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(features, in_features, 1, 1))
         self.bias = nn.Parameter(torch.zeros(features))
+
+    def weight_std(self) -> float:
+        return self.weight.shape[1] ** -0.5
 
 
 class AnchorHead(nn.Module):
@@ -143,24 +146,7 @@ class PointPillarsFused(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Fresh weights: kernels normal with variance 1 / fan_in (flax's
-        lecun-normal without its truncation), drawn on the CPU from
-        ``generator``; BN scales 1, biases 0, running statistics (0, 1);
-        the head's class bias at the focal-loss prior."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[1]
-            if p.dim() < 2:
-                p.fill_(1.0 if leaf == "scale" else 0.0)
-                continue
-            module = self.get_submodule(name.rsplit(".", 1)[0])
-            if module is self.encoder:                     # (9, C)
-                fan_in = p.shape[0]
-            elif getattr(module, "transpose", False):      # (in, out, k, k)
-                fan_in = p.shape[0] * p.shape[2] * p.shape[3]
-            else:                                          # (out, in, k, k)
-                fan_in = p[0].numel()
-            p.copy_(torch.empty(p.shape).normal_(
-                0.0, fan_in ** -0.5, generator=generator))
+        """Fresh weights (``models.common.reset_parameters``), the head's
+        class bias at the focal-loss prior."""
+        reset_parameters(self, generator)
         self.head.cls.bias.fill_(CLS_BIAS_INIT)
-        for name, buf in self.named_buffers():
-            buf.fill_(1.0 if name.endswith("var") else 0.0)

@@ -1,8 +1,10 @@
-"""Anchor-based 3D detection, PointPillars (port of
-``lisec_tpu/pipelines/detection.py::PointPillarsPipeline``).
+"""Anchor-based 3D detection: PointPillars and SECOND (port of
+``lisec_tpu/pipelines/detection.py::PointPillarsPipeline`` and
+``SECONDPipeline``).
 
-Inference: points + mask -> fused encoder -> backbone -> head -> score
-preselect -> decode -> direction-bin yaw -> rotated NMS ->
+Inference: points + mask -> encoder (the fused pillar encoder, or
+voxelize + mean-VFE + the sparse middle encoder) -> backbone -> head ->
+score preselect -> decode -> direction-bin yaw -> rotated NMS ->
 boxes/scores/labels/valid. Training assigns targets on the device and
 uses the focal / smooth-L1 with sin-difference / direction loss recipe.
 """
@@ -18,8 +20,10 @@ import torch.nn.functional as F
 from lisec_tpu_torch.config import Config
 from lisec_tpu_torch.data.kitti import KittiDetection
 from lisec_tpu_torch.models.pointpillars import PointPillarsFused
+from lisec_tpu_torch.models.second import SECONDNet
 from lisec_tpu_torch.ops.boxes import decode_boxes
 from lisec_tpu_torch.ops.nms import rotated_nms, top_k
+from lisec_tpu_torch.ops.voxelize import voxelize_mean_batch
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.assigner import (
@@ -29,6 +33,7 @@ from lisec_tpu_torch.training.losses import (
     sigmoid_focal_loss, sin_difference, smooth_l1)
 
 register_model("pointpillars")(PointPillarsFused)
+register_model("second")(SECONDNet)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -141,8 +146,12 @@ class PointPillarsPipeline(Pipeline):
                       for b, c, m in zip(*gts)]
             return type(frames[0])(*(torch.stack(f) for f in zip(*frames)))
 
+    def _model_args(self, batch):
+        """What the model's forward takes from a batch."""
+        return batch["points"], batch["point_mask"]
+
     def loss(self, batch):
-        preds = self.model(batch["points"], batch["point_mask"])
+        preds = self.model(*self._model_args(batch))
         return self.loss_terms(preds, self.assign(batch))
 
     def loss_terms(self, preds, assign):
@@ -189,7 +198,7 @@ class PointPillarsPipeline(Pipeline):
 
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        preds = self.model(batch["points"], batch["point_mask"])
+        preds = self.model(*self._model_args(batch))
         budget = self.cfg.budget
 
         # Preselect nms_pre candidates by score before any decode math.
@@ -228,3 +237,44 @@ class PointPillarsPipeline(Pipeline):
                             and self.num_classes > 1 else 0))
         return {"boxes": nms.boxes, "scores": nms.scores,
                 "labels": nms.labels, "valid": nms.valid}
+
+
+@register_pipeline("second")
+class SECONDPipeline(PointPillarsPipeline):
+    """SECOND-style sparse-voxel detector: the same program as
+    PointPillars with the pillar encoder replaced by voxelize + mean-VFE
+    and the sparse 3D middle encoder. The anchor map sits on the 8x
+    downsampled BEV grid."""
+
+    OUTPUT_STRIDE = 8
+
+    def _model_args(self, batch):
+        cfg = self.cfg
+        vox = voxelize_mean_batch(
+            batch["points"], batch["point_mask"],
+            pc_range=cfg.voxel.point_cloud_range,
+            voxel_size=cfg.voxel.voxel_size, grid_size=self.grid,
+            max_voxels=cfg.budget.max_voxels,
+            max_points_per_voxel=cfg.budget.max_points_per_voxel)
+        return vox.feats, vox.coords, vox.num_points, vox.num_voxels
+
+    def build_model(self, cfg: Config) -> SECONDNet:
+        p = cfg.model.params
+        mv = cfg.budget.max_voxels
+        return SECONDNet(
+            num_classes=self.num_classes,
+            grid_size=self.grid,
+            num_anchors_per_cell=self.num_classes * 2,
+            level_budgets=tuple(p.get(
+                "level_budgets", [mv, mv // 2, mv // 4, mv // 8])),
+            dense_from_level=int(p.get("dense_from_level", 2)),
+            downsample=str(p.get("downsample", "dilate")),
+            encoder_channels=tuple(p.get("encoder_channels",
+                                         [16, 32, 64, 64])),
+            bev_layers=tuple(p.get("bev_layers", [5, 5])),
+            bev_filters=tuple(p.get("bev_filters", [128, 256])),
+            bev_strides=tuple(p.get("bev_strides", [1, 2])),
+            bev_up_strides=tuple(p.get("bev_up_strides", [1, 2])),
+            bev_up_filters=tuple(p.get("bev_up_filters", [256, 256])),
+            dtype=_DTYPES[p.get("dtype", "float32")],
+        )

@@ -10,8 +10,10 @@ every key onto the port's ``state_dict`` names and layouts:
 * transposed-conv kernels (kh, kw, in, out) -> (in, out, kh, kw), flipped
   in space: ``permute(2, 3, 0, 1).flip(2, 3)`` (flax's ``ConvTranspose``
   does not flip the kernel, ``conv_transpose2d`` does);
-* everything else (encoder kernel (9, C), BN scale/bias/mean/var, head
-  biases) as it is.
+* SECOND's dense 3D conv kernels (kd, kh, kw, in, out) ->
+  (out, in, kd, kh, kw): ``permute(4, 3, 0, 1, 2)``;
+* everything else (encoder kernel (9, C), sparse conv kernels
+  (K, Cin, Cout), BN scale/bias/mean/var, head biases) as it is.
 
 ``to_flax_arrays`` is the way back, for comparing gradients, updated
 parameters and running statistics with the JAX package name by name.
@@ -31,6 +33,16 @@ _PATTERNS = (
     (re.compile(r"(params|batch_stats)/FusedPillarEncoder_0/"
                 r"(kernel|scale|bias|mean|var)$"),
      lambda m: f"encoder.{m[2]}"),
+    (re.compile(r"params/SparseMiddleEncoder_0/SparseConv3D_(\d+)/kernel$"),
+     lambda m: f"encoder.sparse.{m[1]}.weight"),
+    (re.compile(r"(params|batch_stats)/SparseMiddleEncoder_0/"
+                r"SparseConv3D_(\d+)/BatchNorm_0/(scale|bias|mean|var)$"),
+     lambda m: f"encoder.sparse.{m[2]}.{m[3]}"),
+    (re.compile(r"params/SparseMiddleEncoder_0/Conv_(\d+)/kernel$"),
+     lambda m: f"encoder.dense.{m[1]}.weight"),
+    (re.compile(r"(params|batch_stats)/SparseMiddleEncoder_0/"
+                r"MaskedBatchNorm_(\d+)/(scale|bias|mean|var)$"),
+     lambda m: f"encoder.dense.{m[2]}.{m[3]}"),
     (re.compile(r"params/BEVBackbone_0/ConvBNRelu_(\d+)/"
                 r"(Conv|ConvTranspose)_0/kernel$"),
      lambda m: f"backbone.layers.{m[1]}.weight"),
@@ -49,12 +61,15 @@ def _convert_value(key: str, arr: np.ndarray) -> torch.Tensor:
         return t.permute(2, 3, 0, 1).flip(2, 3).contiguous()
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1).contiguous()
+    if t.dim() == 5:
+        return t.permute(4, 3, 0, 1, 2).contiguous()
     return t
 
 
 def convert_flax_arrays(flat: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
-    """Flat flax arrays -> the port's PointPillarsFused ``state_dict``.
+    """Flat flax arrays -> the ``state_dict`` of the port's
+    PointPillarsFused or SECONDNet.
 
     Raises KeyError on a key it cannot place."""
     out = {}
@@ -87,8 +102,15 @@ def _flax_key(name: str) -> str:
     """``state_dict`` name -> flat flax key."""
     col = "batch_stats" if name.rsplit(".", 1)[1] in _BUFFERS else "params"
     part, _, rest = name.partition(".")
-    if part == "encoder":
+    if part == "encoder" and "." not in rest:
         return f"{col}/FusedPillarEncoder_0/{rest}"
+    if part == "encoder":                          # encoder.<list>.<i>.<leaf>
+        kind, i, leaf = rest.split(".")
+        conv, bn = (("SparseConv3D_{}/kernel", "SparseConv3D_{}/BatchNorm_0/")
+                    if kind == "sparse" else ("Conv_{}/kernel",
+                                              "MaskedBatchNorm_{}/"))
+        return f"{col}/SparseMiddleEncoder_0/" + (
+            conv.format(i) if leaf == "weight" else bn.format(i) + leaf)
     if part == "head":
         conv, leaf = rest.split(".")
         flax_conv = {v: k for k, v in _HEAD.items()}[conv]
@@ -121,5 +143,7 @@ def to_flax_arrays(model: nn.Module,
         elif t.dim() == 4:
             t = t.permute(2, 3, 1, 0)
             key = key.format(conv="Conv_0")
+        elif t.dim() == 5:
+            t = t.permute(2, 3, 4, 1, 0)
         out[key] = t.contiguous().numpy()
     return out
