@@ -41,8 +41,22 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    batch 4, and every kernel, its plain version, its glue and (where one
    exists) the PyTorch call for the same function at the main paths'
    shapes, with CUDA events;
-7. print the ``{"kernels": [...]}`` line, the card's name and power
+7. PointNet++ part segmentation (``configs/pointnet2_partseg_fixture_conv
+   .yaml`` at full width: SSG, 16 categories, 50 parts, 2048 points,
+   seed-initialised weights, fixture clouds): ``fps``, ``gather_rows``
+   and ``scatter_rows`` against their plain versions at the path's
+   shapes and on edge cases; predict through ``infer`` at batch 16 and 1
+   (2 FPS and 7 gather launches each, nothing else), the kernel route
+   against the plain route; ``pointnet2_partseg_tiny`` on the card
+   against the CPU; train steps at batch 16 (Adam, step schedule,
+   augmentation; 3 scatter launches a step) held against the plain route
+   with dropout made the identity, a short ``train(cfg)``; the predict by
+   stage, the train step by part, every point-kernel call;
+8. print the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
+
+Every comparison on the card runs with TF32 off for matrix products and
+convolutions.
 
 It needs a CUDA card and the rest of the repository; without either it
 exits nonzero before printing any result.
@@ -65,7 +79,7 @@ WEIGHTS = os.path.join(ROOT, "weights", "pointpillars_fixture_hard.npz")
 SECOND_CFG = os.path.join(ROOT, "configs", "second_kitti.yaml")
 SECOND_TRAIN_CFG = os.path.join(ROOT, "configs", "second_fixture_conv.yaml")
 KERNEL_SOURCES = ("encoder_kernel", "segment_paint", "segment_unpaint",
-                  "spread_accumulate")
+                  "spread_accumulate", "fps", "gather_rows")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 
@@ -1253,6 +1267,616 @@ def phase_second_timing(pipe, cfg):
     return rows[8]
 
 
+# -- PointNet++: the point kernels, serving, training, timing ----------------
+
+PARTSEG_CFG = os.path.join(ROOT, "configs",
+                           "pointnet2_partseg_fixture_conv.yaml")
+PARTSEG_TINY_CFG = os.path.join(ROOT, "configs", "pointnet2_partseg_tiny.yaml")
+# The gathers of a full-width predict at batch 16: (source rows, C, ids per
+# cloud); and the scatters of its train step: (rows, C, table rows).
+PARTSEG_GATHER_SHAPES = ((2048, 3, 512), (2048, 3, 16384), (512, 3, 128),
+                         (512, 3, 8192), (512, 128, 8192), (128, 256, 1536),
+                         (512, 128, 6144))
+PARTSEG_SCATTER_SHAPES = ((8192, 128, 512), (1536, 256, 128),
+                          (6144, 128, 512))
+PARTSEG_LAUNCHES_PER_PREDICT = {
+    "pillar_canvas_fused": 0, "segment_paint": 0, "segment_unpaint": 0,
+    "spread_accumulate": 0, "fps": 2, "gather_rows": 7, "scatter_rows": 0}
+PARTSEG_LAUNCHES_PER_TRAIN_STEP = {**PARTSEG_LAUNCHES_PER_PREDICT,
+                                   "scatter_rows": 3}
+
+
+def point_launches():
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    return {"fps": fk.LAUNCHES, "gather_rows": gr.GATHER_LAUNCHES,
+            "scatter_rows": gr.SCATTER_LAUNCHES}
+
+
+def all_launches():
+    from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
+    return {"pillar_canvas_fused": ek.LAUNCHES, **segment_launches(),
+            **point_launches()}
+
+
+def zero_all_launches():
+    from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    zero_segment_launches()
+    ek.LAUNCHES = fk.LAUNCHES = 0
+    gr.GATHER_LAUNCHES = gr.SCATTER_LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def swapped_point_ops(fps, gather, scatter):
+    """Swap ``fps`` (as ``ops/fps.py`` calls it), ``gather_rows`` and
+    ``scatter_rows`` (as ``GatherRows`` calls them), here only: the
+    package has no switch on the card."""
+    from lisec_tpu_torch.ops import fps as fps_op
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    saved = [(fps_op, "fps", fps_op.fps), (gr, "gather_rows", gr.gather_rows),
+             (gr, "scatter_rows", gr.scatter_rows)]
+    fps_op.fps, gr.gather_rows, gr.scatter_rows = fps, gather, scatter
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def plain_point_ops():
+    """The point kernels' callers on their plain PyTorch versions."""
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    return swapped_point_ops(fk.fps_reference, gr.gather_rows_reference,
+                             gr.scatter_rows_reference)
+
+
+def partseg_batch(pipe, cfg, b, split="test"):
+    """The first ``b`` fixture clouds of ``split``, padded (no
+    augmentation)."""
+    from lisec_tpu_torch.data.collate import make_batches
+    return next(make_batches(pipe.make_dataset(split), cfg.budget, b,
+                             shuffle=False))
+
+
+def phase_point_kernel_check(pipe, cfg, gen):
+    """``fps``, ``gather_rows`` and ``scatter_rows`` on the card against
+    their plain versions at the PointNet++ path's full-width shapes and on
+    edge cases: FPS picks and gathers equal to the bit, the scatter equal
+    to the bit and twice identical. Returns the largest |difference| seen
+    for each kernel."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    g = torch.Generator(device="cuda").manual_seed(gen.initial_seed())
+    worst = dict.fromkeys(("fps", "gather_rows", "scatter_rows"), 0.0)
+
+    def check_fps(what, pts, mask, m):
+        got = fk.fps(pts, mask, m)
+        torch.cuda.synchronize()
+        ref = fk.fps_reference(pts, mask, m)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fps {what}: {int((got != ref).sum())} "
+                                 "picks differ from the plain version")
+        picked_valid = mask.gather(1, got.long())
+        some = mask.any(1)
+        if not picked_valid[some].all() or got[~some].any():
+            raise AssertionError(f"fps {what}: a masked point was picked")
+        emit("kernel_check", kernel="fps", case=what,
+             points=list(pts.shape), samples=m, picks_equal=True,
+             valid_points_per_cloud=mask.sum(1).tolist()[:8],
+             distinct_picks_per_cloud=[len(set(r)) for r in
+                                       got.tolist()][:8])
+        return got
+
+    dev = pipe.device_batch(partseg_batch(pipe, cfg, 16))
+    pts, mask = dev["points"].contiguous(), dev["point_mask"]
+    idx1 = check_fps("sa1_full_width", pts, mask, 512)
+    check_fps("sa2_full_width", gr.gather_rows(pts, idx1),
+              mask.gather(1, idx1.long()), 128)
+    n = 1500                          # no multiple of the 1024-thread block
+    pts = torch.rand((4, n, 3), generator=g, device="cuda")
+    mask = torch.rand((4, n), generator=g, device="cuda") > 0.1
+    mask[0] = False                                  # all masked
+    mask[1] = False
+    mask[1, ::37] = True                             # 41 valid, M = 128
+    mask[2] = True
+    mask[2, 300:900] = False                         # masked middle
+    pts[3] = torch.randint(-2, 3, (n, 3), generator=g,
+                           device="cuda").float()   # ties, duplicates
+    got = check_fps("edge_cases", pts, mask, 128)
+    if len(set(got[1].tolist())) != 41:
+        raise AssertionError("fps: the short cloud's picks")
+    check_fps("batch_1_m_equals_n", pts[2:3].contiguous(), mask[2:3].clone(),
+              n)
+
+    def check_gather(what, src, idx):
+        got = gr.gather_rows(src, idx)
+        torch.cuda.synchronize()
+        ref = gr.gather_rows_reference(src, idx)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"gather_rows {what} {src.dtype}: "
+                                 f"{int((got != ref).sum())} elements differ")
+        emit("kernel_check", kernel="gather_rows", case=what,
+             src=list(src.shape), ids=list(idx.shape), dtype=str(src.dtype),
+             bit_equal=True)
+
+    for rows, c, m in PARTSEG_GATHER_SHAPES:
+        idx = torch.randint(0, rows, (16, m), generator=g, device="cuda",
+                            dtype=torch.int32)
+        src = torch.randn((16, rows, c), generator=g, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            check_gather("full_width", src.to(dtype), idx)
+    for c in (1, 3, 5, 64):
+        src = torch.randn((4, 100, c), generator=g, device="cuda")
+        idx = torch.randint(-3, 104, (4, 333), generator=g, device="cuda",
+                            dtype=torch.int32)         # -1.. and >= N
+        idx[0, :3] = torch.tensor([-1, 100, 99], dtype=torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_gather(f"ids_out_of_range_c{c}_m333", src.to(dtype), idx)
+
+    def check_scatter(what, vals, idx, num_rows):
+        got = gr.scatter_rows(vals, idx, num_rows=num_rows)
+        torch.cuda.synchronize()
+        again = gr.scatter_rows(vals, idx, num_rows=num_rows)
+        ref = gr.scatter_rows_reference(vals, idx, num_rows=num_rows)
+        err = float((got - ref).abs().max())
+        worst["scatter_rows"] = max(worst["scatter_rows"], err)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"scatter_rows {what}: {int((got != ref).sum())} elements "
+                f"differ from the plain version, max |d| {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"scatter_rows {what}: two runs differ")
+        ok = (idx >= 0) & (idx < num_rows)
+        hits = torch.zeros((idx.shape[0], num_rows + 1), device="cuda")
+        hits.scatter_add_(1, torch.where(ok, idx, num_rows).long(),
+                          torch.ones_like(idx, dtype=torch.float32))
+        emit("kernel_check", kernel="scatter_rows", case=what,
+             vals=list(vals.shape), num_rows=num_rows,
+             rows_landed=int(ok.sum()),
+             most_rows_on_one_target=int(hits[:, :num_rows].max()),
+             bit_equal=True, two_runs_identical=True, max_abs_err=err)
+        return got
+
+    for m, c, r in PARTSEG_SCATTER_SHAPES:
+        # Runs of repeated ids, as the ball query's repeat-fill makes them.
+        idx = torch.randint(0, r, (16, m), generator=g, device="cuda",
+                            dtype=torch.int32)
+        rep = torch.rand((16, m), generator=g, device="cuda") < 0.4
+        rep[:, 0] = False
+        last_new = torch.cummax(torch.where(rep, -1, torch.arange(
+            m, device="cuda")), dim=1).values
+        idx = idx.gather(1, last_new).to(torch.int32).contiguous()
+        check_scatter("full_width", torch.randn((16, m, c), generator=g,
+                                                device="cuda"), idx, r)
+    vals = torch.randn((2, 4096, 64), generator=g, device="cuda")
+    got = check_scatter("every_row_onto_one_target", vals,
+                        torch.full((2, 4096), 511, dtype=torch.int32,
+                                   device="cuda"), 512)
+    if got[:, :511].any():
+        raise AssertionError("scatter_rows: rows beside the one target")
+    dropped = torch.where(torch.rand((2, 4096), generator=g, device="cuda")
+                          < 0.5, -1, 512).to(torch.int32)
+    if check_scatter("all_rows_dropped", vals, dropped, 512).any():
+        raise AssertionError("scatter_rows: a dropped row landed")
+    desc = torch.sort(torch.randint(0, 512, (2, 4096), generator=g,
+                                    device="cuda"), dim=1,
+                      descending=True).values.to(torch.int32)
+    check_scatter("descending_ids", vals, desc, 512)
+    return worst
+
+
+def phase_partseg_serving(pipe, cfg):
+    """Full-width PointNet++ predict at batch 16 and 1 through ``infer``:
+    launches (2 FPS and 7 gathers per predict, nothing else), outputs,
+    and the kernel route against the plain route on the card."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    per_batch = {}
+    for b in (16, 1):
+        batch = partseg_batch(pipe, cfg, b)
+        zero_all_launches()
+        out = infer(pipe, batch)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        if launches != PARTSEG_LAUNCHES_PER_PREDICT:
+            raise AssertionError(f"partseg predict launches {launches}, "
+                                 f"expected {PARTSEG_LAUNCHES_PER_PREDICT}")
+        logits, labels = out["logits"], out["labels"]
+        if logits.shape != (b, cfg.budget.max_points, pipe.num_parts) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"partseg logits {tuple(logits.shape)}")
+        if labels.dtype != torch.int32 or labels.min() < 0 \
+                or labels.max() >= pipe.num_parts:
+            raise AssertionError("partseg labels")
+        before = all_launches()
+        with plain_point_ops():
+            plain = infer(pipe, batch)
+        if all_launches() != before:
+            raise AssertionError("the plain route launched a kernel")
+        diff = float((logits - plain["logits"]).abs().max())
+        scale = float(plain["logits"].abs().max())
+        if diff > 1e-5 * scale or not torch.equal(labels, plain["labels"]):
+            raise AssertionError(f"partseg kernel vs plain route: logits "
+                                 f"differ by {diff} (largest {scale})")
+        point_acc = float((labels.long() == torch.as_tensor(
+            batch["point_labels"], device="cuda")).float().mean())
+        emit("partseg_main_path", config="pointnet2_partseg_fixture_conv",
+             batch=b, launches=launches, logits_max_abs=scale,
+             max_abs_diff_vs_plain=diff,
+             matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+             logits_bit_equal_to_plain=bool(torch.equal(logits,
+                                                        plain["logits"])),
+             labels_equal_to_plain=True,
+             point_accuracy_seed_weights=point_acc)
+        per_batch[b] = launches
+    return per_batch[16]
+
+
+def phase_partseg_tiny_vs_cpu():
+    """``pointnet2_partseg_tiny`` (seed-initialised) on the card against
+    the CPU: labels equal except where the top two logits lie within
+    1e-5."""
+    import torch
+    from lisec_tpu_torch.api import build_model, infer, load_config
+    cfg = load_config(PARTSEG_TINY_CFG)
+    outs = []
+    for d in ("cuda", "cpu"):
+        pipe = build_model(cfg, d)
+        batch = partseg_batch(pipe, cfg, cfg.train.batch_size, "train")
+        outs.append({k: v.cpu() for k, v in infer(pipe, batch, d).items()})
+    top2 = torch.topk(outs[1]["logits"], 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-5
+    differ = outs[0]["labels"] != outs[1]["labels"]
+    if (differ & ~near).any():
+        raise AssertionError(f"pointnet2_partseg_tiny cuda vs cpu: "
+                             f"{int((differ & ~near).sum())} labels differ")
+    emit("tiny_vs_cpu", config="pointnet2_partseg_tiny",
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         logits_max_abs_diff=float((outs[0]["logits"]
+                                    - outs[1]["logits"]).abs().max()),
+         logits_max_abs=float(outs[1]["logits"].abs().max()),
+         labels_differing=int(differ.sum()),
+         points_with_top_two_within_1e_5=int(near.sum()),
+         points=int(near.numel()))
+
+
+def partseg_loss_and_grads(pipe, batch):
+    import torch
+    pipe.model.train()
+    pipe.optimizer.zero_grad()
+    with torch.enable_grad():
+        loss, aux = pipe.loss(pipe.device_batch(batch))
+        loss.backward()
+    torch.cuda.synchronize()
+    return (loss.detach(), aux["acc"].detach(),
+            {n: p.grad.clone() for n, p in pipe.model.named_parameters()})
+
+
+def phase_partseg_train():
+    """Full-width PointNet++ train steps at batch 16 (Adam, the step
+    schedule, augmentation on) through ``train_step``: launches (2 FPS, 7
+    gathers, 3 scatters a step), finite loss, every tensor moved; the first
+    step's loss and gradients against the same step over the plain
+    versions, dropout made the identity for that comparison; then a short
+    ``lisec_tpu_torch.train`` whose loss falls."""
+    import torch
+    import lisec_tpu_torch
+    from lisec_tpu_torch.api import build_model
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    from lisec_tpu_torch.data.collate import make_batches
+    cfg = apply_overrides(load_config(PARTSEG_CFG), [
+        'train.ckpt_dir=""', f"train.num_steps={TRAIN_STEPS}",
+        "train.log_every=1"])
+    if not cfg.data.augment.enabled or cfg.train.schedule != "step":
+        raise AssertionError("partseg training config: augmentation and the "
+                             "step schedule must be on")
+    pipe = build_model(cfg)
+    pipe.init_state(cfg.train.seed)
+    batches = make_batches(pipe.make_dataset("train"), cfg.budget,
+                           cfg.train.batch_size, shuffle=True,
+                           seed=cfg.train.seed,
+                           augment_fn=pipe.augment_fn("train"))
+    first = next(batches)
+    start = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+
+    zero_all_launches()
+    with torch.enable_grad():
+        auxes = [pipe.train_step(first if i == 0 else next(batches))
+                 for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = {k: v * TRAIN_STEPS
+            for k, v in PARTSEG_LAUNCHES_PER_TRAIN_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"partseg train launches {launches} in "
+                             f"{TRAIN_STEPS} steps, expected {want}")
+    auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
+    for a in auxes:
+        if not all(v == v and abs(v) != float("inf") for v in a.values()):
+            raise AssertionError(f"partseg train step: non-finite {a}")
+    stuck = [k for k, v in pipe.model.state_dict().items()
+             if torch.equal(v, start[k])]
+    if stuck or pipe.step != TRAIN_STEPS:
+        raise AssertionError(f"partseg train step: unchanged {stuck}, "
+                             f"step {pipe.step}")
+    emit("partseg_train_path", config="pointnet2_partseg_fixture_conv",
+         batch=cfg.train.batch_size, steps=TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         per_step=auxes, tensors_moved=len(start))
+
+    # Kernels against plain versions, dropout the identity: the gathers
+    # and FPS are exact on both routes and the scatter adds in the same
+    # order, so the loss within 1e-5 relative and every gradient within
+    # 1e-3 of its own L2 norm (bit-equal expected).
+    pipe.model.dropout_rate = 0.0
+    pipe.model.load_state_dict(start)
+    loss_k, acc_k, grads_k = partseg_loss_and_grads(pipe, first)
+    pipe.model.load_state_dict(start)
+    before = all_launches()
+    with plain_point_ops():
+        loss_p, acc_p, grads_p = partseg_loss_and_grads(pipe, first)
+    if all_launches() != before:
+        raise AssertionError("the plain run launched a kernel")
+    pipe.model.dropout_rate = 0.4
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if rel_loss > 1e-5 or float(acc_k) != float(acc_p):
+        raise AssertionError(f"partseg loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}")
+    worst, worst_name = 0.0, ""
+    for pname, gk in grads_k.items():
+        gp = grads_p[pname]
+        rel = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, pname
+    if worst > 1e-3:
+        raise AssertionError(f"partseg gradient of {worst_name}: relative "
+                             f"L2 difference {worst} from the plain run")
+    emit("train_vs_plain", config="pointnet2_partseg_fixture_conv",
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         dropout="identity", loss=float(loss_k), plain_loss=float(loss_p),
+         loss_rel_diff=rel_loss, worst_grad_rel_l2=worst,
+         worst_grad=worst_name, gradients=len(grads_k),
+         gradients_bit_equal=all(torch.equal(grads_k[k], grads_p[k])
+                                 for k in grads_k))
+
+    short = apply_overrides(cfg, ["train.num_steps=8", "train.log_every=2"])
+    with torch.enable_grad():
+        trained, history = lisec_tpu_torch.train(short, progress=False)
+    torch.cuda.synchronize()
+    if len(history) != 5 or trained.step != 8:
+        raise AssertionError(f"partseg train(): {len(history)} records")
+    if not (history[-1]["loss"] + history[-2]["loss"]) / 2 \
+            < history[0]["loss"]:
+        raise AssertionError(f"partseg train() loss did not fall: "
+                             f"{[r['loss'] for r in history]}")
+    emit("train_entry_point", config="pointnet2_partseg_fixture_conv",
+         steps=8, loss_per_logged_step={r["step"]: r["loss"]
+                                        for r in history},
+         acc_per_logged_step={r["step"]: r["acc"] for r in history},
+         lr={r["step"]: r["lr"] for r in history})
+    pipe.model.load_state_dict(start)
+    return pipe, cfg, first, launches
+
+
+def fps_call_row(points, mask, m):
+    """One ``fps`` call timed on the tensors the path handed it. Bound:
+    about 10 f32 operations per valid point per round over the f32 rate,
+    against the points, mask and picks over the memory rate."""
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    valid = int(mask.sum())
+    nbytes = points.nbytes + mask.nbytes + points.shape[0] * m * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * valid * (m - 1) / F32_FLOPS * 1e3
+    return dict(
+        points=list(points.shape), samples=m, valid_points=valid,
+        ms=cuda_ms(lambda: fk.fps(points, mask, m), 20),
+        plain_ms=cuda_ms(lambda: fk.fps_reference(points, mask, m), 3),
+        library_ms=None, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, operations=10 * valid * (m - 1))
+
+
+def gather_call_row(src, idx):
+    """One ``gather_rows`` call: the kernel, its plain version,
+    ``torch.gather`` on the same tensors, and its bound (the ids, the rows
+    they name and the output over the memory rate)."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    b, n, c = src.shape
+    ok = (idx >= 0) & (idx < n)
+    flat = idx.long() + torch.arange(b, device=idx.device)[:, None] * n
+    rows_read = int(torch.unique(flat[ok]).numel())
+    esize = src.element_size()
+    nbytes = idx.nbytes + rows_read * c * esize + idx.numel() * c * esize
+    idx64 = torch.where(ok, idx, 0).long()[..., None].expand(-1, -1, c)
+    return dict(
+        src=list(src.shape), ids=list(idx.shape), dtype=str(src.dtype),
+        rows_read=rows_read,
+        ms=cuda_ms(lambda: gr.gather_rows(src, idx), 20),
+        plain_ms=cuda_ms(lambda: gr.gather_rows_reference(src, idx), 5),
+        library_ms=cuda_ms(lambda: torch.gather(src, 1, idx64), 20),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes)
+
+
+def scatter_call_row(vals, idx, num_rows):
+    """One ``scatter_rows`` call: the kernel with its sort glue, the glue
+    alone, its plain version, ``index_add_`` (f32 atomics in no fixed
+    order) and its bound (ids, the values of the rows that land and the
+    table over the memory rate, against one add per landed row-channel)."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    b, m, c = vals.shape
+    ok = (idx >= 0) & (idx < num_rows)
+    landed = int(ok.sum())
+    nbytes = idx.nbytes + landed * c * 4 + b * num_rows * c * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = landed * c / F32_FLOPS * 1e3
+    rows = (torch.where(ok, idx, num_rows).long()
+            + torch.arange(b, device="cuda")[:, None] * (num_rows + 1)
+            ).reshape(-1)
+    flat = vals.reshape(-1, c)
+    counts = torch.bincount(rows, minlength=b * (num_rows + 1))
+    return dict(
+        vals=list(vals.shape), num_rows=num_rows, rows_landed=landed,
+        most_rows_on_one_target=int(counts.view(b, -1)[:, :num_rows].max()),
+        ms=cuda_ms(lambda: gr.scatter_rows(vals, idx, num_rows=num_rows),
+                   20),
+        glue_ms=cuda_ms(lambda: gr.sort_rows(idx, num_rows), 20),
+        plain_ms=cuda_ms(lambda: gr.scatter_rows_reference(
+            vals, idx, num_rows=num_rows), 3),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (b * (num_rows + 1), c), device="cuda").index_add_(
+                0, rows, flat), 20),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes)
+
+
+def partseg_stage_ms(pipe, dev, runs=5):
+    """Mean ms of a device-resident predict's stages, by events around the
+    model's own calls (wrapped here only): FPS, ball query, grouping (the
+    SA gathers), the SA and global MLPs, feature propagation (FP3, 3-NN,
+    interpolation, MLPs) and the head."""
+    import torch
+    from lisec_tpu_torch.models import pointnet2
+    model = pipe.model
+    timer = EventTimer()
+    functions = {"farthest_point_sampling": "fps", "ball_query": "ball_query",
+                 "gather_points": "grouping",
+                 "group_and_decorate": "grouping"}
+    wrapped = [(mlp, "forward", "sa_mlps") for sa in model.sa
+               for mlp in sa.mlps]
+    wrapped += [(model.global_sa, "forward", "sa_mlps"),
+                (model.fp3, "forward", "fp"), (model.fp[0], "forward", "fp"),
+                (model.fp[1], "forward", "fp"),
+                (model.head_dense, "forward", "head"),
+                (model.head_bn, "forward", "head"),
+                (model.head_out, "forward", "head")]
+    saved = {f: getattr(pointnet2, f) for f in functions}
+
+    def run():
+        with torch.no_grad():
+            pipe.predict(dev)
+    run()
+    run()
+    try:
+        for obj, attr, name in wrapped:
+            setattr(obj, attr, timer.wrap(name, getattr(obj, attr)))
+        for f, name in functions.items():
+            setattr(pointnet2, f, timer.wrap(name, saved[f]))
+        total = cuda_ms(run, iters=runs, warmup=0)
+    finally:
+        for obj, attr, _ in wrapped:
+            delattr(obj, attr)
+        for f, fn in saved.items():
+            setattr(pointnet2, f, fn)
+    ms = timer.ms_per_run(runs)
+    ms["rest"] = total - sum(ms.values())
+    ms["predict"] = total
+    return ms
+
+
+def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
+                         train_batch):
+    """PointNet++ predict at batch 16 and 1 (from host numpy,
+    device-resident, by stage), the train step at batch 16 and its parts,
+    and every point-kernel call of a batch-16 predict (FPS, gathers) and
+    of a train step's backward (scatters) on the tensors the path hands
+    it. Returns (fps rows, gather rows, scatter rows)."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    from lisec_tpu_torch.training.losses import cross_entropy
+    for b in (16, 1):
+        batch = partseg_batch(serve_pipe, serve_cfg, b)
+        ms = cuda_ms(lambda: infer(serve_pipe, batch), iters=10)
+        dev = serve_pipe.device_batch(batch)
+        with torch.no_grad():
+            ms_dev = cuda_ms(lambda: serve_pipe.predict(dev), iters=10)
+        emit("partseg_predict", config="pointnet2_partseg_fixture_conv",
+             batch=b, ms_per_batch=ms, clouds_per_s=b * 1e3 / ms,
+             device_resident_ms=ms_dev,
+             device_resident_clouds_per_s=b * 1e3 / ms_dev,
+             stages_ms=partseg_stage_ms(serve_pipe, dev))
+
+    pipe, b = train_pipe, train_cfg.train.batch_size
+    with torch.enable_grad():
+        ms_step = cuda_ms(lambda: pipe.train_step(train_batch), iters=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pipe.train_step(train_batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        dev = pipe.device_batch(train_batch)
+        parts = dict.fromkeys(("forward", "loss", "backward", "optimizer"),
+                              0.0)
+        for it in range(7):                          # 2 warm-up + 5
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            pipe.model.train()
+            pipe.optimizer.zero_grad()
+            ev[0].record()
+            logits = pipe.model(*pipe._model_args(dev),
+                                generator=pipe.dropout_generator)
+            ev[1].record()
+            loss = cross_entropy(logits, dev["point_labels"],
+                                 mask=dev["point_mask"])
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            pipe.optimizer.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            if it >= 2:
+                for i, k in enumerate(parts):
+                    parts[k] += ev[i].elapsed_time(ev[i + 1]) / 5
+    emit("partseg_train_step", config="pointnet2_partseg_fixture_conv",
+         batch=b, ms_per_step=ms_step, clouds_per_s=b * 1e3 / ms_step,
+         host_clock_ms_per_step=host_ms,
+         host_clock_clouds_per_s=b * 1e3 / host_ms,
+         **{f"{k}_ms": v for k, v in parts.items()})
+
+    # Record what one batch-16 predict and one train step hand the kernels.
+    calls = {"fps": [], "gather_rows": [], "scatter_rows": []}
+    gather, scatter = gr.gather_rows, gr.scatter_rows   # before the swap
+
+    def rec_fps(points, mask, m):
+        calls["fps"].append((points, mask, m))
+        return fk.fps(points, mask, m)
+
+    def rec_gather(src, idx):
+        calls["gather_rows"].append((src.detach(), idx))
+        return gather(src, idx)
+
+    def rec_scatter(vals, idx, *, num_rows):
+        calls["scatter_rows"].append((vals, idx, num_rows))
+        return scatter(vals, idx, num_rows=num_rows)
+
+    dev = serve_pipe.device_batch(partseg_batch(serve_pipe, serve_cfg, 16))
+    with swapped_point_ops(rec_fps, rec_gather, rec_scatter):
+        with torch.no_grad():
+            serve_pipe.predict(dev)
+        predict_calls = {k: list(v) for k, v in calls.items()}
+        calls["scatter_rows"].clear()
+        partseg_loss_and_grads(pipe, train_batch)
+    rows = (
+        [fps_call_row(*c) for c in predict_calls["fps"]],
+        [gather_call_row(*c) for c in predict_calls["gather_rows"]],
+        [scatter_call_row(*c) for c in calls["scatter_rows"]])
+    for kernel, per_call in zip(("fps", "gather_rows", "scatter_rows"), rows):
+        for i, call in enumerate(per_call):
+            emit("partseg_kernel", kernel=kernel, call=i, **call)
+    if [len(r) for r in rows] != [2, 7, 3]:
+        raise AssertionError(f"partseg kernel calls {[len(r) for r in rows]}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1262,6 +1886,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from lisec_tpu_torch.api import build_model, load_config
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
@@ -1298,6 +1924,15 @@ def main() -> int:
                                     train_pipe, train_cfg, train_batch)
     second_train_rows = phase_train_timing("second_fixture_conv",
                                            *second_train[:3])
+    partseg_cfg = load_config(PARTSEG_CFG)
+    partseg_pipe = build_model(partseg_cfg)        # weights from seed 0
+    point_err = phase_point_kernel_check(partseg_pipe, partseg_cfg, gen)
+    partseg_launches = phase_partseg_serving(partseg_pipe, partseg_cfg)
+    phase_partseg_tiny_vs_cpu()
+    partseg_train = phase_partseg_train()
+    fps_rows, gather_rows_, scatter_rows_ = phase_partseg_timing(
+        partseg_pipe, partseg_cfg, *partseg_train[:3])
+    partseg_train_launches = partseg_train[3]
 
     def summed(per_call):
         library = [c["library_ms"] for c in per_call]
@@ -1341,6 +1976,25 @@ def main() -> int:
         "launches_per_train_step": second_train[3][name] / TRAIN_STEPS,
         "calls": second_calls,
         "second_train_step": summed(second_train_rows[name])})
+    # The point kernels: FPS and the gathers as the calls of one PointNet++
+    # predict at batch 16 together, the scatters as the three of one train
+    # step at batch 16 (the gathers' backward).
+    for info, rows, launches_, err_ in (
+            (fk.KERNEL_INFO, fps_rows, partseg_launches["fps"],
+             point_err["fps"]),
+            (gr.GATHER_INFO, gather_rows_, partseg_launches["gather_rows"],
+             point_err["gather_rows"]),
+            (gr.SCATTER_INFO, scatter_rows_,
+             partseg_train_launches["scatter_rows"],
+             point_err["scatter_rows"])):
+        name = info["name"]
+        kernels.append({
+            **info, "launches": launches_, "max_abs_err": err_,
+            **summed(rows),
+            "launches_per_predict": PARTSEG_LAUNCHES_PER_PREDICT[name],
+            "launches_per_train_step":
+                partseg_train_launches[name] / TRAIN_STEPS,
+            "calls": rows})
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

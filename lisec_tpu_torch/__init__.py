@@ -10,11 +10,17 @@ wrappers take for CPU tensors.
 Ported so far: PointPillars inference (``configs/pointpillars_kitti.yaml``)
 with the fused pillar-encoder kernel, PointPillars training
 (``configs/pointpillars_fixture_hard_conv.yaml``) with the segment paint
-and unpaint kernels, and SECOND inference and training
+and unpaint kernels, SECOND inference and training
 (``configs/second_kitti.yaml``, ``configs/second_fixture_conv.yaml``) with
-the spread-accumulate kernel under its sparse convs. Checkpoints, data-parallel training, host-side
-augmentation and evaluation are not ported yet and raise
-``NotImplementedError`` when a config asks for them. Public API::
+the spread-accumulate kernel under its sparse convs, and PointNet++ part
+segmentation, inference and training
+(``configs/pointnet2_partseg_fixture_conv.yaml``), with the
+farthest-point-sampling kernel and the row gather and ordered row
+scatter kernels under its grouping and interpolation. Every TPU kernel
+of the JAX package now has its CUDA counterpart. Checkpoints,
+data-parallel training, the detection augmentation and evaluation are
+not ported yet and raise ``NotImplementedError`` when a config asks for
+them. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")
     pipeline = lisec_tpu_torch.build_model(cfg)          # device="cuda"

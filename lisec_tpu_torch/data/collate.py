@@ -27,6 +27,15 @@ def pad_points(cloud: np.ndarray, max_points: int) -> Dict[str, np.ndarray]:
     return {"points": points, "point_mask": mask}
 
 
+def pad_labels(labels: np.ndarray, max_points: int) -> np.ndarray:
+    """Pad/truncate per-point labels to (max_points,), padding with the
+    ignore label -1."""
+    out = np.full((max_points,), -1, labels.dtype)
+    n = min(len(labels), max_points)
+    out[:n] = labels[:n]
+    return out
+
+
 def pad_boxes(boxes: np.ndarray, classes: np.ndarray,
               max_boxes: int) -> Dict[str, np.ndarray]:
     """Pad/truncate (B, 7) gt boxes + (B,) class ids to the budget."""
@@ -41,16 +50,20 @@ def pad_boxes(boxes: np.ndarray, classes: np.ndarray,
 
 
 def pad_to_budget(sample: Dict[str, np.ndarray], budget) -> Dict[str, np.ndarray]:
-    """Pad a raw detection sample dict to the BudgetConfig shapes. The
-    per-point and per-cloud labels of segmentation and classification
-    come with those workloads; a sample that carries them is refused."""
-    unported = {"point_labels", "label", "category"} & set(sample)
-    if unported:
+    """Pad a raw detection or part-segmentation sample dict to the
+    BudgetConfig shapes. The per-cloud label of classification comes with
+    that workload; a sample that carries it is refused."""
+    if "label" in sample:
         raise NotImplementedError(
-            f"pad_to_budget: {sorted(unported)} belong to workloads that "
-            f"are not ported yet")
+            "pad_to_budget: 'label' belongs to classification, which is "
+            "not ported yet")
     out: Dict[str, np.ndarray] = {}
     out.update(pad_points(sample["points"], budget.max_points))
+    if "point_labels" in sample:
+        out["point_labels"] = pad_labels(
+            sample["point_labels"], budget.max_points)
+    if "category" in sample:
+        out["category"] = np.asarray(sample["category"], np.int32)
     if "gt_boxes" in sample:
         out.update(pad_boxes(sample["gt_boxes"], sample["gt_classes"],
                              budget.max_boxes))

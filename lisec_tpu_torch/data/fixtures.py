@@ -1,18 +1,62 @@
-"""Synthetic detection fixtures (copy of ``make_detection_scene``,
-``_ray_box_t`` and ``make_detection_scene_hard`` from
-``lisec_tpu/data/fixtures.py``).
+"""Synthetic fixtures (copy of ``_unit_shape``, ``make_partseg_cloud``,
+``make_detection_scene``, ``_ray_box_t`` and ``make_detection_scene_hard``
+from ``lisec_tpu/data/fixtures.py``).
 
 Real datasets are not shipped, so training, the smoke run and the tests
-draw lidar-like scenes from a seed: box-shaped clusters on ground
-clutter, or ray-cast scenes with occlusion. The copy must reproduce the JAX
-package's arrays bit for bit (``tests/test_torch_pointpillars.py``).
+draw data from a seed: part-labelled shapes in the unit sphere, and
+lidar-like scenes of box-shaped clusters on ground clutter or ray-cast
+scenes with occlusion. The copy must reproduce the JAX package's arrays
+bit for bit (``tests/test_torch_pointpillars.py``,
+``tests/test_torch_partseg.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+
+
+def _unit_shape(rng: np.random.Generator, cls: int, n: int) -> np.ndarray:
+    """A learnable class-conditioned point shape in the unit sphere."""
+    kind = cls % 4
+    if kind == 0:        # sphere shell, radius varies with class
+        r = 0.4 + 0.55 * ((cls // 4) % 5) / 5.0
+        v = rng.normal(size=(n, 3))
+        v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-6)
+        return (v * r).astype(np.float32)
+    if kind == 1:        # cube surface, size varies
+        s = 0.3 + 0.6 * ((cls // 4) % 5) / 5.0
+        p = rng.uniform(-s, s, size=(n, 3)).astype(np.float32)
+        ax = rng.integers(0, 3, n)
+        sign = rng.choice([-1.0, 1.0], n)
+        p[np.arange(n), ax] = s * sign
+        return p
+    if kind == 2:        # cylinder, aspect varies
+        h = 0.3 + 0.6 * ((cls // 4) % 5) / 5.0
+        theta = rng.uniform(0, 2 * np.pi, n)
+        z = rng.uniform(-h, h, n)
+        return np.stack([0.5 * np.cos(theta), 0.5 * np.sin(theta), z],
+                        -1).astype(np.float32)
+    # two clusters, separation varies
+    d = 0.3 + 0.5 * ((cls // 4) % 5) / 5.0
+    c = rng.choice([-d, d], n)
+    return (rng.normal(scale=0.15, size=(n, 3)).astype(np.float32)
+            + np.stack([c, np.zeros(n), np.zeros(n)], -1).astype(np.float32))
+
+
+def make_partseg_cloud(
+    seed: int, category: int, n: int, num_parts_per_cat: int = 3,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Cloud + per-point part labels: parts are spatial slabs along an
+    axis that depends on the category (learnable from geometry)."""
+    rng = np.random.default_rng(seed * 2003 + category)
+    pts = _unit_shape(rng, category, n)
+    axis = category % 3
+    edges = np.quantile(pts[:, axis], [1 / 3, 2 / 3])
+    part = np.digitize(pts[:, axis], edges)
+    labels = category * num_parts_per_cat + part
+    return pts, labels.astype(np.int32)
 
 
 def make_detection_scene(

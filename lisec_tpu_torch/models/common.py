@@ -1,4 +1,6 @@
-"""Shared NN blocks (port of ``lisec_tpu/models/common.py``), NCHW.
+"""Shared NN blocks (port of ``lisec_tpu/models/common.py``): the
+detectors' NCHW ``ConvBNRelu``, and the point networks' ``SharedMLP``
+and ``masked_max`` over channels-last rows.
 
 Parameters are stored in PyTorch's layouts; ``lisec_tpu_torch/weights.py``
 converts the flax ones. ``dtype`` is the compute dtype: inputs and
@@ -25,15 +27,16 @@ def pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
-def batch_norm(xf: torch.Tensor, layer: nn.Module,
-               channel_dim: int) -> torch.Tensor:
-    """flax's ``BatchNorm(momentum=0.99, epsilon=1e-3)`` of f32 ``xf``
-    over every axis but ``channel_dim``, with ``layer``'s ``scale``,
-    ``bias`` and running ``mean`` and ``var``, written out as flax
-    computes it: in ``eval()`` mode with the running statistics; in
-    ``train()`` mode with the batch statistics, the variance as
-    E[x^2] - E[x]^2 clipped at 0, and that biased variance going into the
-    running statistics with momentum 0.99 (``torch.nn.BatchNorm2d``
+def batch_norm(xf: torch.Tensor, layer: nn.Module, channel_dim: int, *,
+               momentum: float = BN_MOMENTUM, eps: float = BN_EPS
+               ) -> torch.Tensor:
+    """flax's ``BatchNorm(momentum, epsilon)`` (by default the detectors'
+    0.99 and 1e-3) of f32 ``xf`` over every axis but ``channel_dim``,
+    with ``layer``'s ``scale``, ``bias`` and running ``mean`` and
+    ``var``, written out as flax computes it: in ``eval()`` mode with the
+    running statistics; in ``train()`` mode with the batch statistics,
+    the variance as E[x^2] - E[x]^2 clipped at 0, and that biased
+    variance going into the running statistics (``torch.nn.BatchNorm2d``
     stores the unbiased one). Returns f32; the caller casts."""
     dims = [d for d in range(xf.dim()) if d != channel_dim % xf.dim()]
     shape = [1] * xf.dim()
@@ -42,17 +45,17 @@ def batch_norm(xf: torch.Tensor, layer: nn.Module,
         mean = xf.mean(dim=dims)
         var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0)
         with torch.no_grad():
-            layer.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-            layer.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+            layer.mean.mul_(momentum).add_((1.0 - momentum) * mean)
+            layer.var.mul_(momentum).add_((1.0 - momentum) * var)
     else:
         mean, var = layer.mean, layer.var
-    mul = torch.rsqrt(var + BN_EPS) * layer.scale
+    mul = torch.rsqrt(var + eps) * layer.scale
     return (xf - mean.view(shape)) * mul.view(shape) + layer.bias.view(shape)
 
 
 @torch.no_grad()
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Fresh weights for a detector: every kernel normal with its
+    """Fresh weights: every kernel normal with its
     module's ``weight_std()`` (flax's initializers without their
     truncation), drawn on the CPU from ``generator`` in parameter order;
     BN scales 1, every bias 0, running statistics (0, 1)."""
@@ -108,3 +111,63 @@ class ConvBNRelu(nn.Module):
         fan_in = (w.shape[0] * w.shape[2] * w.shape[3] if self.transpose
                   else w[0].numel())
         return fan_in ** -0.5
+
+
+# -- point networks (channels last) -------------------------------------------
+
+POINT_BN_MOMENTUM = 0.9     # flax BatchNorm(momentum=0.9), eps 1e-5
+POINT_BN_EPS = 1e-5
+
+
+class Dense(nn.Linear):
+    """flax's ``nn.Dense``: ``x @ kernel (+ bias)``, its (in, out) kernel
+    stored as ``nn.Linear``'s (out, in) weight."""
+
+    def weight_std(self) -> float:
+        """flax's lecun-normal: variance 1 / fan_in."""
+        return self.in_features ** -0.5
+
+
+class BatchNorm(nn.Module):
+    """Parameters and running statistics of one flax ``BatchNorm`` over
+    the last axis, applied by :func:`batch_norm` with the point networks'
+    momentum 0.9 and eps 1e-5."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return batch_norm(x.float(), self, -1, momentum=POINT_BN_MOMENTUM,
+                          eps=POINT_BN_EPS)
+
+
+class SharedMLP(nn.Module):
+    """Pointwise MLP over the last axis: per layer Dense (no bias, as BN
+    follows), BatchNorm, ReLU."""
+
+    def __init__(self, in_features: int, features):
+        super().__init__()
+        widths = [in_features, *features]
+        self.dense = nn.ModuleList(
+            Dense(a, b, bias=False) for a, b in zip(widths, widths[1:]))
+        self.bn = nn.ModuleList(BatchNorm(f) for f in features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for dense, bn in zip(self.dense, self.bn):
+            x = torch.relu(bn(dense(x)))
+        return x
+
+
+def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int
+               ) -> torch.Tensor:
+    """Max over ``dim`` of x (..., N, C) counting only rows whose mask
+    (..., N) is set; 0 where none is. ``dim`` must not be the channel
+    axis."""
+    dim = dim % x.dim()
+    neg = torch.finfo(x.dtype).min
+    y = torch.where(mask.bool()[..., None], x, neg).amax(dim=dim)
+    return torch.where(mask.bool().any(dim=dim)[..., None], y, 0.0)

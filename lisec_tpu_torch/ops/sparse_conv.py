@@ -75,11 +75,10 @@ def _unique_sorted_coords(lin: torch.Tensor, grid: Tuple[int, int, int],
                           max_out: int):
     """Candidate cell ids (B, M), ``nz * ny * nx`` where invalid -> the
     distinct ids ascending, the lowest ``max_out`` of them, as (coords
-    (B, max_out, 3) int32 with -1 padding, count (B,) int32)."""
+    (B, min(M, max_out), 3) int32 with -1 padding, count (B,) int32).
+    Fewer candidates than ``max_out`` give M rows, as the JAX package's
+    ``sort(...)[:max_out]`` does."""
     b, m = lin.shape
-    if m < max_out:
-        raise ValueError(f"{m} candidate cells cannot fill a budget of "
-                         f"{max_out} rows")
     n_cells = grid[0] * grid[1] * grid[2]
     lin_sorted = torch.sort(lin, dim=1).values
     prev = torch.cat([lin_sorted.new_full((b, 1), -1), lin_sorted[:, :-1]], 1)
@@ -103,7 +102,8 @@ def build_output_coords(coords_in: torch.Tensor, num_in: torch.Tensor,
 
     coords_in: (B, V, 3) int32 [z, y, x], valid rows first, sorted by cell
     id; num_in (B,). Returns (coords_out (B, max_out, 3) int32 with -1
-    padding, num_out (B,) int32). An output o is active iff some input
+    padding, or fewer rows if there are fewer candidates, num_out (B,)
+    int32). An output o is active iff some input
     lies under some tap: in = o * stride - pad + k."""
     b, v, _ = coords_in.shape
     go = spec.grid_out

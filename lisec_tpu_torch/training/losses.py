@@ -1,13 +1,35 @@
-"""Detection losses (port of ``sigmoid_focal_loss``, ``smooth_l1`` and
-``sin_difference`` from ``lisec_tpu/training/losses.py``): focal loss
-(alpha 0.25, gamma 2), smooth-L1 with SECOND's sin-difference angle
-trick. The other workloads' losses come with those workloads.
+"""Losses (port of ``cross_entropy``, ``sigmoid_focal_loss``,
+``smooth_l1`` and ``sin_difference`` from ``lisec_tpu/training/losses.py``):
+the segmentation cross-entropy; the detectors' focal loss (alpha 0.25,
+gamma 2) and smooth-L1 with SECOND's sin-difference angle trick. The
+other workloads' losses come with those workloads.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  mask: Optional[torch.Tensor] = None,
+                  class_weights: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Mean softmax cross-entropy over the entries where ``mask`` (if
+    given) is set and the label is not negative; ``class_weights``
+    weights each entry by its label's weight."""
+    safe = labels.clamp_min(0).long()
+    ce = -torch.log_softmax(logits, dim=-1).gather(
+        -1, safe[..., None])[..., 0]
+    if class_weights is not None:
+        ce = ce * class_weights[safe]
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask.bool()
+    denom = valid.sum().clamp_min(1)
+    return torch.where(valid, ce, 0.0).sum() / denom
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, *,

@@ -12,8 +12,18 @@ every key onto the port's ``state_dict`` names and layouts:
   does not flip the kernel, ``conv_transpose2d`` does);
 * SECOND's dense 3D conv kernels (kd, kh, kw, in, out) ->
   (out, in, kd, kh, kw): ``permute(4, 3, 0, 1, 2)``;
+* Dense kernels (in, out) of PointNet++ -> ``nn.Linear`` weights
+  (out, in): transposed;
 * everything else (encoder kernel (9, C), sparse conv kernels
-  (K, Cin, Cout), BN scale/bias/mean/var, head biases) as it is.
+  (K, Cin, Cout), BN scale/bias/mean/var, biases) as it is.
+
+PointNet++'s flax names map by module: ``SetAbstraction_i/SharedMLP_j``
+-> ``sa.i.mlps.j``, ``GlobalSetAbstraction_0/SharedMLP_0`` ->
+``global_sa.mlp``, the top-level ``SharedMLP_0`` (FP3) -> ``fp3``,
+``FeaturePropagation_i/SharedMLP_0`` -> ``fp.i.mlp``, inside each
+``Dense_k`` -> ``dense.k`` and ``BatchNorm_k`` -> ``bn.k``; the head's
+``Dense_0``, ``BatchNorm_0`` and ``Dense_1`` -> ``head_dense``,
+``head_bn``, ``head_out``.
 
 ``to_flax_arrays`` is the way back, for comparing gradients, updated
 parameters and running statistics with the JAX package name by name.
@@ -29,6 +39,34 @@ import torch
 from torch import nn
 
 _HEAD = {"Conv_0": "cls", "Conv_1": "box", "Conv_2": "dir"}
+# PointNet++: flax module path of a shared MLP -> the port's module.
+_MLP_OWNERS = (
+    (re.compile(r"SetAbstraction_(\d+)/SharedMLP_(\d+)$"),
+     lambda m: f"sa.{m[1]}.mlps.{m[2]}"),
+    (re.compile(r"GlobalSetAbstraction_0/SharedMLP_0$"),
+     lambda m: "global_sa.mlp"),
+    (re.compile(r"SharedMLP_0$"), lambda m: "fp3"),
+    (re.compile(r"FeaturePropagation_(\d+)/SharedMLP_0$"),
+     lambda m: f"fp.{m[1]}.mlp"),
+)
+_POINTNET2_HEAD = {"Dense_0": "head_dense", "BatchNorm_0": "head_bn",
+                   "Dense_1": "head_out"}
+
+
+def _pointnet2_name(m: "re.Match") -> str:
+    owner, layer = m["owner"], m["layer"]
+    leaf = "weight" if m["leaf"] == "kernel" else m["leaf"]
+    if owner is None:
+        return f"{_POINTNET2_HEAD[layer]}.{leaf}"
+    for pattern, name in _MLP_OWNERS:
+        o = pattern.match(owner)
+        if o:
+            kind, k = layer.split("_")
+            return (f"{name(o)}.{'dense' if kind == 'Dense' else 'bn'}."
+                    f"{k}.{leaf}")
+    raise KeyError(owner)
+
+
 _PATTERNS = (
     (re.compile(r"(params|batch_stats)/FusedPillarEncoder_0/"
                 r"(kernel|scale|bias|mean|var)$"),
@@ -52,11 +90,18 @@ _PATTERNS = (
     (re.compile(r"params/AnchorHead_0/(Conv_[012])/(kernel|bias)$"),
      lambda m: f"head.{_HEAD[m[1]]}."
                f"{'weight' if m[2] == 'kernel' else 'bias'}"),
+    (re.compile(r"(params|batch_stats)/(?:(?P<owner>(?:SetAbstraction_\d+/"
+                r"|GlobalSetAbstraction_0/|FeaturePropagation_\d+/)?"
+                r"SharedMLP_\d+)/)?(?P<layer>(?:Dense|BatchNorm)_\d+)/"
+                r"(?P<leaf>kernel|bias|scale|mean|var)$"),
+     _pointnet2_name),
 )
 
 
 def _convert_value(key: str, arr: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr, np.float32))
+    if re.search(r"Dense_\d+/kernel$", key):
+        return t.T.contiguous()
     if key.endswith("ConvTranspose_0/kernel"):
         return t.permute(2, 3, 0, 1).flip(2, 3).contiguous()
     if t.dim() == 4:
@@ -69,7 +114,7 @@ def _convert_value(key: str, arr: np.ndarray) -> torch.Tensor:
 def convert_flax_arrays(flat: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """Flat flax arrays -> the ``state_dict`` of the port's
-    PointPillarsFused or SECONDNet.
+    PointPillarsFused, SECONDNet or PointNet2PartSeg.
 
     Raises KeyError on a key it cannot place."""
     out = {}
@@ -98,8 +143,36 @@ def load_weights_npz(model: nn.Module, path: str) -> nn.Module:
 _BUFFERS = ("mean", "var")
 
 
+_POINTNET2_PARTS = {"sa", "global_sa", "fp3", "fp", *_POINTNET2_HEAD.values()}
+
+
+def _pointnet2_flax_key(name: str) -> str:
+    """PointNet++ ``state_dict`` name -> flat flax key."""
+    part, _, rest = name.partition(".")
+    if part in _POINTNET2_HEAD.values():
+        layer = {v: k for k, v in _POINTNET2_HEAD.items()}[part]
+        owner, leaf = "", rest
+    else:
+        if part == "sa":                   # sa.<i>.mlps.<j>.<rest>
+            i, _, j, rest = rest.split(".", 3)
+            owner = f"SetAbstraction_{i}/SharedMLP_{j}/"
+        elif part == "global_sa":          # global_sa.mlp.<rest>
+            owner, rest = "GlobalSetAbstraction_0/SharedMLP_0/", rest[4:]
+        elif part == "fp3":
+            owner = "SharedMLP_0/"
+        else:                              # fp.<i>.mlp.<rest>
+            i, _, rest = rest.split(".", 2)
+            owner = f"FeaturePropagation_{i}/SharedMLP_0/"
+        kind, k, leaf = rest.split(".")
+        layer = f"{'Dense' if kind == 'dense' else 'BatchNorm'}_{k}"
+    col = "batch_stats" if leaf in _BUFFERS else "params"
+    return f"{col}/{owner}{layer}/{'kernel' if leaf == 'weight' else leaf}"
+
+
 def _flax_key(name: str) -> str:
     """``state_dict`` name -> flat flax key."""
+    if name.partition(".")[0] in _POINTNET2_PARTS:
+        return _pointnet2_flax_key(name)
     col = "batch_stats" if name.rsplit(".", 1)[1] in _BUFFERS else "params"
     part, _, rest = name.partition(".")
     if part == "encoder" and "." not in rest:
@@ -131,13 +204,15 @@ def to_flax_arrays(model: nn.Module,
     when given."""
     transposed = {f"backbone.layers.{i}.weight"
                   for i, layer in enumerate(model.backbone.layers)
-                  if layer.transpose}
+                  if layer.transpose} if hasattr(model, "backbone") else ()
     out = {}
     for name, t in (model.state_dict() if tensors is None
                     else tensors).items():
         t = t.detach().cpu().float()
         key = _flax_key(name)
-        if name in transposed:                     # undo flip and permute
+        if t.dim() == 2 and "/Dense_" in key:      # nn.Linear (out, in)
+            t = t.T
+        elif name in transposed:                   # undo flip and permute
             t = t.flip(2, 3).permute(2, 3, 0, 1)
             key = key.format(conv="ConvTranspose_0")
         elif t.dim() == 4:

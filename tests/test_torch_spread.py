@@ -199,8 +199,27 @@ def test_output_sets_equal_jax(build_fn, grid):
         np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
         if max_out == budgets[1]:
             assert int(got_n[1]) == max_out       # the budget overflowed
-    with pytest.raises(ValueError):
-        getattr(psc, build_fn)(_t(coords), _t(num), pspec, max_out=10 ** 6)
+
+
+@pytest.mark.parametrize("build_fn", ["build_output_coords",
+                                     "build_footprint_coords"])
+def test_output_sets_above_the_candidate_count_equal_jax(build_fn):
+    """A budget above the number of candidate cells: the JAX functions
+    return one row per candidate (``sort(...)[:max_out]``; V rows for the
+    footprint set), and so does the port."""
+    rng = np.random.default_rng(3)
+    coords, num = _voxel_lists(rng, 3, 64, GRID, [50, 64, 0])
+    jspec = jsc.SparseConvSpec(*DOWN, GRID)
+    pspec = psc.SparseConvSpec(*DOWN, GRID)
+    max_out = 10 ** 6
+    want_c, want_n = jax.vmap(lambda c, n: getattr(jsc, build_fn)(
+        c, n, jspec, max_out=max_out))(jnp.asarray(coords), jnp.asarray(num))
+    got_c, got_n = getattr(psc, build_fn)(_t(coords), _t(num), pspec,
+                                         max_out=max_out)
+    rows = 64 if build_fn == "build_footprint_coords" else 64 * 8
+    assert got_c.shape == want_c.shape == (3, rows, 3)
+    np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
 
 
 @pytest.mark.parametrize("kind", ["subm", "down", "down_truncated",

@@ -560,10 +560,10 @@ def test_prefetch_hands_on_items_and_errors(port_pipe):
     assert next(stream) == 1
     with pytest.raises(KeyError, match="no such scene"):
         next(stream)
-    # A sample of a workload that is not ported is refused, not passed on
-    # half padded.
+    # A sample of a workload that is not ported (classification) is
+    # refused, not passed on half padded.
     sample = {"points": np.zeros((3, 4), np.float32),
-              "point_labels": np.zeros(3, np.int32)}
+              "label": np.int32(3)}
     with pytest.raises(NotImplementedError):
         pad_to_budget(sample, port_pipe.cfg.budget)
 
