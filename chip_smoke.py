@@ -10,8 +10,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
 2. hold each kernel against its plain PyTorch version on the card, at
    the main paths' shapes plus edge cases: the fused encoder on random
    clouds at KITTI geometry; ``segment_paint`` in its three channel
-   splits, ``segment_unpaint``, and ``segment_max_sorted`` forward and
-   backward (f32 inputs, and bf16-valued inputs full of ties);
+   splits and at the edges of its tiling, ``segment_unpaint``, and
+   ``segment_max_sorted`` forward and backward (f32 inputs, and
+   bf16-valued inputs full of ties);
    ``spread_accumulate`` on the rulebooks of ray-cast scenes at SECOND's
    full width and on edge cases, bit for bit, and the sparse conv's
    ``Function`` forward and backward;
@@ -37,22 +38,29 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    (``configs/second_fixture_conv.yaml`` at full width, batch 4) the same
    way as phase 4;
 6. time the PointPillars predict at batch 8 and 32, the SECOND predict
-   at batch 1 and 8 with its stages, both train steps and their parts at
-   batch 4, and every kernel, its plain version, its glue and (where one
-   exists) the PyTorch call for the same function at the main paths'
-   shapes, with CUDA events;
+   at batch 1 and 8 with its stages (and its two paint calls at batch
+   8), both train steps and their parts at batch 4, and every kernel, its
+   plain version, the encoder's sort glue and (where one exists) the
+   PyTorch call for the same function at the main paths' shapes, with
+   CUDA events;
 7. PointNet++ part segmentation (``configs/pointnet2_partseg_fixture_conv
    .yaml`` at full width: SSG, 16 categories, 50 parts, 2048 points,
    seed-initialised weights, fixture clouds): ``fps``, ``gather_rows``
    and ``scatter_rows`` against their plain versions at the path's
-   shapes and on edge cases; predict through ``infer`` at batch 16 and 1
-   (2 FPS and 7 gather launches each, nothing else), the kernel route
+   shapes and on edge cases (the scatter's tiling among them); predict
+   through ``infer`` at batch 16 and 1 (2 FPS and 7 gather launches
+   each, nothing else), the kernel route
    against the plain route; ``pointnet2_partseg_tiny`` on the card
    against the CPU; train steps at batch 16 (Adam, step schedule,
    augmentation; 3 scatter launches a step) held against the plain route
    with dropout made the identity, a short ``train(cfg)``; the predict by
    stage, the train step by part, every point-kernel call;
-8. print the ``{"kernels": [...]}`` line, the card's name and power
+8. list under ``torch.profiler`` what ``scatter_rows`` and
+   ``segment_paint`` calls run (the output's allocation and the
+   kernel's own launch, nothing else), then take the device time of
+   every timed call of the two (after the timed phases, so that no
+   trace touches them);
+9. print the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Every comparison on the card runs with TF32 off for matrix products and
@@ -110,6 +118,46 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def profiled(fn, iters: int):
+    """``fn()`` ``iters`` times under ``torch.profiler`` (after one call
+    outside it): the aten ops the host ran and the (name, microseconds)
+    of every CUDA kernel the trace caught. A trace can miss the launches
+    of its first microseconds, so callers count what it caught."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops, kernels = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((e.name, e.time_range.elapsed_us()))
+        elif e.name.startswith("aten::"):
+            ops.append(e.name)
+    return ops, kernels
+
+
+# Per-call rows whose kernel's device time the last phase fills in, with
+# the call that gives it: (kernel, row, fn). Every profiler trace of the
+# run comes after its timed phases.
+DEVICE_TIMED = []
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds that the one CUDA kernel ``fn()`` launches spends
+    on the card, over the launches a profiler trace of ``iters`` calls
+    caught: the kernel's own time, without the host's share of the
+    call."""
+    _, kernels = profiled(fn, iters)
+    if not kernels:
+        raise AssertionError("the profiler caught no kernel launch")
+    return sum(us for _, us in kernels) / len(kernels) / 1e3
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -300,6 +348,56 @@ def phase_segment_kernel_check(gen):
                  max_channels="bit-equal", sum_max_abs_err=err,
                  sum_elements_differing=bits,
                  occupied_cells=int(occupied.sum()))
+
+    # The kernel's tiling (up to 1024 cells a block, fewer for wide tables)
+    # on a table of 100,003 cells, no multiple of any tile: cloud 0 random
+    # with negative ids at its head and an unsorted invalid tail, cloud 1
+    # every row in one cell, cloud 2 every row invalid, cloud 3 hundreds of
+    # rows on each cell around the tile edges at 1024 and 2048. Every C the
+    # kernel treats apart (one channel a thread, four, four read as one
+    # vector), with and without split.
+    nc, n = 100_003, 40_000
+    ids = torch.sort(torch.randint(0, nc, (4, n), generator=gen), 1).values
+    ids[0, :300] = torch.sort(-torch.randint(1, 60, (300,), generator=gen)
+                              ).values
+    ids[0, -500:] = nc + torch.randint(0, 1000, (500,), generator=gen)
+    ids[1] = 77_777
+    ids[2, :100] = -1
+    ids[2, 100:] = nc + torch.randint(0, 1000, (n - 100,), generator=gen)
+    ids[3] = torch.sort(torch.cat([
+        torch.randint(1000, 1050, (n // 2,), generator=gen),
+        torch.randint(2040, 2056, (n // 4,), generator=gen),
+        torch.randint(0, nc, (n - n // 2 - n // 4,), generator=gen)])).values
+    ids = ids.to(torch.int32).cuda()
+    for c, num_max in ((1, 0), (1, 1), (3, 0), (3, 2), (4, 0), (4, 2),
+                       (8, 0), (8, 4), (65, 0), (65, 64)):
+        vals = torch.randn((4, n, c), generator=gen).cuda()
+        got = sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max)
+        torch.cuda.synchronize()
+        ref = sp.segment_paint_reference(vals, ids, num_cells=nc,
+                                         num_max=num_max)
+        what = f"segment_paint tiling c{c} num_max{num_max}"
+        err, bits = check_paint(got, ref, num_max, what)
+        if not torch.equal(got, sp.segment_paint(vals, ids, num_cells=nc,
+                                                 num_max=num_max)):
+            raise AssertionError(f"{what}: two runs differ")
+        splits = [c - 1] if c > 1 else []
+        for split in splits:
+            head, tail = sp.segment_paint(vals, ids, num_cells=nc,
+                                          num_max=num_max, split=split)
+            if not (torch.equal(head, got[..., :split])
+                    and torch.equal(tail, got[..., split:])):
+                raise AssertionError(f"{what} split {split}: the two-part "
+                                     "table differs")
+        empty = got[2]
+        if not ((empty[:, :num_max] == sp.EMPTY_MAX).all()
+                and (empty[:, num_max:] == 0).all()):
+            raise AssertionError(f"{what}: the all-invalid cloud's table")
+        worst["segment_paint"] = max(worst["segment_paint"], err)
+        emit("kernel_check", kernel="segment_paint", case="tiling_edges",
+             shape=list(got.shape), num_max=num_max, splits=splits,
+             max_channels="bit-equal", sum_max_abs_err=err,
+             sum_elements_differing=bits, two_runs_identical=True)
 
     # segment_unpaint: the train path's tables (C = 64 and 4, the vector
     # path) and a C that is no multiple of 4 (the scalar path); bit-equal,
@@ -734,6 +832,40 @@ def spread_call_row(vals, targets, num_out):
         bound_ms=bound, bound_by=by, bytes=nbytes)
 
 
+def paint_call_row(vals, ids, nc, num_max, split):
+    """One ``segment_paint`` call timed on the tensors a path handed it:
+    the wrapper (one launch, no glue; ``device_ms``, filled in at the end,
+    the kernel's own time on the card), its plain version, its bound, and
+    for an all-sum table ``index_add_`` as the one PyTorch call for the
+    same function (on a table with a trash row per cloud, f32 atomics). No
+    single PyTorch call computes a table of max and sum channels."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    b, _, c = vals.shape
+    bound, by, nbytes = paint_bound(vals, ids, nc)
+    library = None
+    if num_max == 0:
+        rows_ix = (torch.where((ids < 0) | (ids >= nc), nc, ids).long()
+                   + torch.arange(b, device="cuda")[:, None] * (nc + 1)
+                   ).reshape(-1)
+        flat = vals.reshape(-1, c)
+        library = cuda_ms(lambda: torch.zeros(
+            (b * (nc + 1), c), device="cuda").index_add_(0, rows_ix, flat), 20)
+
+    def call():
+        return sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max,
+                                split=split)
+    row = dict(
+        rows=list(vals.shape), table_rows=nc, num_max=num_max, split=split,
+        rows_placed=int(((ids >= 0) & (ids < nc)).sum()),
+        ms=cuda_ms(call, 20),
+        plain_ms=cuda_ms(lambda: sp.segment_paint_reference(
+            vals, ids, num_cells=nc, num_max=num_max, split=split), 5),
+        library_ms=library, bound_ms=bound, bound_by=by, bytes=nbytes)
+    DEVICE_TIMED.append(("segment_paint", row, call))
+    return row
+
+
 def phase_train_timing(name, pipe, cfg, batch):
     """The train step of config ``name`` and its parts at batch 4, and
     the kernels on the very tensors one train step hands them."""
@@ -800,38 +932,8 @@ def phase_train_timing(name, pipe, cfg, batch):
     rows = {"spread_accumulate": [spread_call_row(*call) for call
                                   in calls["spread_accumulate"]]}
 
-    per_call = []
-    for vals, ids, nc, num_max, split in calls["segment_paint"]:
-        c = vals.shape[2]
-        offs = sp.segment_offsets(ids, nc)
-        out = torch.empty((vals.shape[0], nc, split or c), device="cuda")
-        tail = torch.empty((vals.shape[0], nc, c - split),
-                           device="cuda") if split else None
-        bound, by, nbytes = paint_bound(vals, ids, nc)
-        library = None
-        if num_max == 0:
-            # One PyTorch call computes an all-sum table: index_add_ (on
-            # a table with a trash row per cloud, f32 atomics).
-            rows_ix = (torch.where((ids < 0) | (ids >= nc), nc, ids).long()
-                       + torch.arange(vals.shape[0], device="cuda")[:, None]
-                       * (nc + 1)).reshape(-1)
-            flat = vals.reshape(-1, c)
-            library = cuda_ms(lambda: torch.zeros(
-                (vals.shape[0] * (nc + 1), c), device="cuda").index_add_(
-                    0, rows_ix, flat), 20)
-        per_call.append(dict(
-            rows=list(vals.shape), table_rows=nc, num_max=num_max,
-            split=split,
-            rows_placed=int(((ids >= 0) & (ids < nc)).sum()),
-            ms=cuda_ms(lambda: sp.segment_paint(
-                vals, ids, num_cells=nc, num_max=num_max, split=split), 20),
-            kernel_ms=cuda_ms(lambda: sp.launch_paint_kernel(
-                vals, offs, out, num_max=num_max, out_tail=tail), 20),
-            glue_ms=cuda_ms(lambda: sp.segment_offsets(ids, nc), 20),
-            plain_ms=cuda_ms(lambda: sp.segment_paint_reference(
-                vals, ids, num_cells=nc, num_max=num_max, split=split), 5),
-            library_ms=library, bound_ms=bound, bound_by=by, bytes=nbytes))
-    rows["segment_paint"] = per_call
+    rows["segment_paint"] = [paint_call_row(*call)
+                             for call in calls["segment_paint"]]
 
     per_call = []
     for table, ids in calls["segment_unpaint"]:
@@ -1226,8 +1328,9 @@ def second_stage_ms(pipe, dev, runs=5):
 
 def phase_second_timing(pipe, cfg):
     """SECOND predict at batch 1 and 8 (from host numpy, device-resident,
-    by stage) and every ``spread_accumulate`` call of one predict on the
-    tensors the path hands it. Returns the batch-8 calls."""
+    by stage), every ``spread_accumulate`` call of one predict on the
+    tensors the path hands it, and at batch 8 its two ``segment_paint``
+    calls. Returns the batch-8 spread and paint calls."""
     import torch
     from lisec_tpu_torch.api import infer
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
@@ -1252,18 +1355,28 @@ def phase_second_timing(pipe, cfg):
              device_resident_ms_at_threshold_0=ms_dev_nms,
              stages_ms=stages)
 
-        calls = []
+        calls, paints = [], []
 
         def rec_spread(vals, targets, *, num_out):
             calls.append((vals, targets, num_out))
             return sa.spread_accumulate(vals, targets, num_out=num_out)
-        with swapped_segment_ops(sp.segment_paint, su.segment_unpaint,
+
+        def rec_paint(vals, ids, *, num_cells, num_max, split=None):
+            paints.append((vals, ids, num_cells, num_max, split))
+            return sp.segment_paint(vals, ids, num_cells=num_cells,
+                                    num_max=num_max, split=split)
+        with swapped_segment_ops(rec_paint, su.segment_unpaint,
                                  rec_spread), torch.no_grad():
             pipe.predict(dev)
-        rows[b] = [spread_call_row(*call) for call in calls]
-        for i, call in enumerate(rows[b]):
-            emit("second_kernel", kernel="spread_accumulate", batch=b,
-                 call=i, **call)
+        rows[b] = ([spread_call_row(*call) for call in calls],
+                   [paint_call_row(*call) for call in paints] if b == 8
+                   else [])
+        for kernel, per_call in zip(("spread_accumulate", "segment_paint"),
+                                    rows[b]):
+            for i, call in enumerate(per_call):
+                emit("second_kernel", kernel=kernel, batch=b, call=i, **call)
+    if len(rows[8][1]) != SECOND_LAUNCHES_PER_PREDICT["segment_paint"]:
+        raise AssertionError(f"second predict paint calls {len(rows[8][1])}")
     return rows[8]
 
 
@@ -1466,6 +1579,43 @@ def phase_point_kernel_check(pipe, cfg, gen):
                                     device="cuda"), dim=1,
                       descending=True).values.to(torch.int32)
     check_scatter("descending_ids", vals, desc, 512)
+
+    # The kernel's tiling: tables of 33 and 1000 rows (no multiple of any
+    # tile) with ids beyond both ends, at every C it treats apart (one
+    # channel a thread, four, more than one channel block); 100,000 rows;
+    # M = 1; M above a 2048-id chunk (2^16 + 5, repeat-filled); 5,000 rows
+    # of 8192 on one target (more than a chunk); a vals pointer that is not
+    # 16-byte aligned (a contiguous view at an offset of one float).
+    def ids(b, m, r):
+        return torch.randint(-3, r + 3, (b, m), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    for r in (33, 1000):
+        for c in (1, 3, 5, 128, 256):
+            check_scatter(f"rows{r}_c{c}", randn(4, 3000, c), ids(4, 3000, r),
+                          r)
+    check_scatter("rows100000", randn(2, 8192, 128), ids(2, 8192, 100_000),
+                  100_000)
+    for c in (3, 128):
+        check_scatter(f"m1_c{c}", randn(3, 1, c), torch.tensor(
+            [[0], [2], [-1]], dtype=torch.int32, device="cuda"), 3)
+    m = 2 ** 16 + 5
+    rep = torch.rand((2, m), generator=g, device="cuda") < 0.6
+    rep[:, 0] = False
+    last_new = torch.cummax(torch.where(rep, -1, torch.arange(
+        m, device="cuda")), dim=1).values
+    check_scatter("m_65541_repeat_fill", randn(2, m, 64), ids(2, m, 512)
+                  .gather(1, last_new).contiguous(), 512)
+    many = torch.randint(0, 512, (2, 8192), generator=g, device="cuda",
+                         dtype=torch.int32)
+    many[:, torch.randperm(8192, generator=g, device="cuda")[:5000]] = 17
+    check_scatter("5000_rows_on_one_target", randn(2, 8192, 128), many, 512)
+    buf = randn(2 * 4096 * 128 + 1)[1:].view(2, 4096, 128).contiguous()
+    if buf.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned case is aligned")
+    check_scatter("vals_not_16_byte_aligned", buf, ids(2, 4096, 512), 512)
     return worst
 
 
@@ -1704,10 +1854,12 @@ def gather_call_row(src, idx):
 
 
 def scatter_call_row(vals, idx, num_rows):
-    """One ``scatter_rows`` call: the kernel with its sort glue, the glue
-    alone, its plain version, ``index_add_`` (f32 atomics in no fixed
+    """One ``scatter_rows`` call: the wrapper (one launch, no glue;
+    ``device_ms``, filled in at the end, the kernel's own time on the
+    card), its plain version, ``index_add_`` (f32 atomics in no fixed
     order) and its bound (ids, the values of the rows that land and the
-    table over the memory rate, against one add per landed row-channel)."""
+    table over the memory rate, against one add per landed
+    row-channel)."""
     import torch
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
     b, m, c = vals.shape
@@ -1721,12 +1873,12 @@ def scatter_call_row(vals, idx, num_rows):
             ).reshape(-1)
     flat = vals.reshape(-1, c)
     counts = torch.bincount(rows, minlength=b * (num_rows + 1))
-    return dict(
+    def call():
+        return gr.scatter_rows(vals, idx, num_rows=num_rows)
+    row = dict(
         vals=list(vals.shape), num_rows=num_rows, rows_landed=landed,
         most_rows_on_one_target=int(counts.view(b, -1)[:, :num_rows].max()),
-        ms=cuda_ms(lambda: gr.scatter_rows(vals, idx, num_rows=num_rows),
-                   20),
-        glue_ms=cuda_ms(lambda: gr.sort_rows(idx, num_rows), 20),
+        ms=cuda_ms(call, 20),
         plain_ms=cuda_ms(lambda: gr.scatter_rows_reference(
             vals, idx, num_rows=num_rows), 3),
         library_ms=cuda_ms(lambda: torch.zeros(
@@ -1735,6 +1887,8 @@ def scatter_call_row(vals, idx, num_rows):
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes)
+    DEVICE_TIMED.append(("scatter_rows", row, call))
+    return row
 
 
 def partseg_stage_ms(pipe, dev, runs=5):
@@ -1877,6 +2031,54 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
     return rows
 
 
+def phase_device_times():
+    """The kernel's own time on the card (``device_ms``) of every timed
+    ``segment_paint`` and ``scatter_rows`` call, filled into its row."""
+    for kernel, row, call in DEVICE_TIMED:
+        row["device_ms"] = device_ms(call)
+        emit("device_time", kernel=kernel,
+             call={k: row[k] for k in ("rows", "vals", "table_rows",
+                                       "num_rows", "num_max", "split")
+                   if k in row},
+             ms=row["ms"], device_ms=row["device_ms"],
+             library_ms=row["library_ms"], bound_ms=row["bound_ms"])
+
+
+def phase_profile_listing():
+    """Five ``scatter_rows`` calls (a PointNet++ gradient's shape) and
+    five ``segment_paint`` calls (the encoder statistics' shape) under
+    ``torch.profiler``: the aten ops on the host and the kernels on the
+    card. Each call allocates its output (``aten::new_empty``, which
+    runs ``aten::empty``) and launches its own kernel, and nothing else:
+    no sort, no ``searchsorted``."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    g = torch.Generator(device="cuda").manual_seed(5)
+    vals = torch.randn((16, 8192, 128), generator=g, device="cuda")
+    idx = torch.randint(0, 512, (16, 8192), generator=g, device="cuda",
+                        dtype=torch.int32)
+    rows = torch.randn((4, 32768, 4), generator=g, device="cuda")
+    cells = torch.sort(torch.randint(0, NCELLS + 2000, (4, 32768), generator=g,
+                                     device="cuda"), 1).values.to(torch.int32)
+    calls = {
+        "scatter_rows": (lambda: gr.scatter_rows(vals, idx, num_rows=512),
+                         "scatter_kernel"),
+        "segment_paint": (lambda: sp.segment_paint(
+            rows, cells, num_cells=NCELLS, num_max=0), "segment_paint_kernel")}
+    for name, (call, kernel) in calls.items():
+        ops, kernels = profiled(call, 5)
+        names = sorted({k for k, _ in kernels})
+        emit("profile", kernel=name, calls=5, host_aten_ops=sorted(set(ops)),
+             aten_ops_per_call=len(ops) / 5, cuda_kernels=names,
+             launches_caught=len(kernels))
+        # The output's allocation: new_empty, which dispatches to empty.
+        if set(ops) - {"aten::new_empty", "aten::empty"} or not kernels \
+                or any(kernel not in k for k in names):
+            raise AssertionError(f"{name}: 5 calls ran {sorted(set(ops))} "
+                                 f"and launched {names}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1919,7 +2121,8 @@ def main() -> int:
         "second_fixture_conv", SECOND_TRAIN_CFG, None,
         SECOND_LAUNCHES_PER_TRAIN_STEP)
     timing = phase_timing(pipe, cfg)
-    second_calls = phase_second_timing(second_pipe, second_cfg)
+    second_calls, second_paints = phase_second_timing(second_pipe,
+                                                      second_cfg)
     train_rows = phase_train_timing("pointpillars_fixture_hard_conv",
                                     train_pipe, train_cfg, train_batch)
     second_train_rows = phase_train_timing("second_fixture_conv",
@@ -1933,6 +2136,8 @@ def main() -> int:
     fps_rows, gather_rows_, scatter_rows_ = phase_partseg_timing(
         partseg_pipe, partseg_cfg, *partseg_train[:3])
     partseg_train_launches = partseg_train[3]
+    phase_profile_listing()
+    phase_device_times()
 
     def summed(per_call):
         library = [c["library_ms"] for c in per_call]
@@ -1942,7 +2147,9 @@ def main() -> int:
             "bound_ms": sum(c["bound_ms"] for c in per_call),
             "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                        for c in per_call) else "operations",
-            "library_ms": None if None in library else sum(library)}
+            "library_ms": None if None in library else sum(library),
+            **({"device_ms": sum(c["device_ms"] for c in per_call)}
+               if all("device_ms" in c for c in per_call) else {})}
 
     kernels = [{
         **ek.KERNEL_INFO, "launches": launches, "max_abs_err": err,
@@ -1954,7 +2161,8 @@ def main() -> int:
     # segment-max backward), each call also on its own under "calls". No
     # single PyTorch call computes a table of max and sum channels, so the
     # paint's library time stands only with its all-sum call. Their calls
-    # in a SECOND train step stand beside them.
+    # in a SECOND train step stand beside them, and the paint's two calls
+    # of a SECOND predict at batch 8.
     for mod in (sp, su):
         name = mod.KERNEL_INFO["name"]
         kernels.append({
@@ -1965,7 +2173,10 @@ def main() -> int:
             "launches_per_second_train_step":
                 second_train[3][name] / TRAIN_STEPS,
             "calls": train_rows[name],
-            "second_train_step": summed(second_train_rows[name])})
+            "second_train_step": summed(second_train_rows[name]),
+            **({"second_predict": summed(second_paints),
+                "second_predict_calls": second_paints}
+               if mod is sp else {})})
     # The spread kernel: the nine calls of one SECOND predict at batch 8
     # together; the nine of a train step at batch 4 beside them.
     name = sa.KERNEL_INFO["name"]

@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -68,6 +70,17 @@ def build(name: str) -> Dict[str, object]:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
     return {"seconds": seconds, "log": log}
+
+
+def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s card, for a
+    launch. ``torch._C._cuda_getCurrentRawStream`` skips the Python
+    ``Stream`` object that ``torch.cuda.current_stream`` builds, a few
+    microseconds a call; the public call stands in where it is missing."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.get_device())
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,17 +19,28 @@ in both types, and the scatter adds in f32 in m order.
 
 Design (``csrc/gather_rows.cu``). Gather: one owner thread per output
 element, or per 16 bytes of a row (4 f32 or 8 bf16 channels) where C
-allows, any C (3 for xyz) and any M. Scatter: the wrapper sorts each
-cloud's ids stably and finds each row's range with ``searchsorted``
-(glue, as in ``segment_paint``); one owner thread per output element (or
-per 4 channels) walks its range, which keeps m ascending, adds in f32
-and writes once, zeros included. No float atomics: the ball query's
-repeat-fill makes duplicate ids the normal case, and atomics would
-change the sum from run to run.
+allows, any C (3 for xyz) and any M. Scatter: one launch and no glue (no
+sort or ``searchsorted`` in torch). A block owns a tile of target rows of
+one cloud (up to 32 channel groups of them); it streams the cloud's ids
+through shared memory in chunks of 2048, in m order, and sorts the
+chunk's ids that land in its tile by target with a stable counting sort
+(``__match_any_sync`` ranks equal ids within a warp's round, a scan over
+(target, warp) places them). The block asks L2 for the landed rows; owner
+threads, one per (target row, 4 channels), add their rows of each chunk
+in that order with eight row loads in flight, keep the sums in registers
+across chunks and write once, zero rows included. So the scatter adds
+what its plain version adds, in m order, in f32: bit-equal to it and the
+same bits on every run. No float atomics: the ball query's repeat-fill
+makes duplicate ids the normal case, and atomics would change the sum
+from run to run. A target's rows form one chain of dependent adds; the
+call with the most rows on one target (326) is the slowest of a train
+step's three.
 
 Bounds on the card, both by bytes: the gather reads the ids and the rows
 they name and writes the output; the scatter reads the ids and the
-values of the rows that land and writes the table.
+values of the rows that land and writes the table (each tile re-reads
+its cloud's ids, from L2, which the bound does not count: it is a
+property of the design, not of the work).
 
 On CPU tensors the wrappers compute their plain versions
 (``gather_rows_reference``, ``scatter_rows_reference``); on CUDA tensors
@@ -79,11 +90,11 @@ def gather_rows_reference(src: torch.Tensor, idx: torch.Tensor
 
 def sort_rows(idx: torch.Tensor, num_rows: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The scatter's glue: each cloud's ids sorted stably (so equal ids
-    keep m ascending), the rows in that order (B, M) int32, and the
-    range ``[offsets[b, n], offsets[b, n + 1])`` of the sorted rows whose
-    id is n, (B, num_rows + 1) int32. Ids outside ``[0, num_rows)`` fall
-    outside every range."""
+    """The plain version's ordering: each cloud's ids sorted stably (so
+    equal ids keep m ascending), the rows in that order (B, M) int32, and
+    the range ``[offsets[b, n], offsets[b, n + 1])`` of the sorted rows
+    whose id is n, (B, num_rows + 1) int32. Ids outside ``[0, num_rows)``
+    fall outside every range."""
     ids, order = torch.sort(idx, dim=1, stable=True)
     bounds = torch.arange(num_rows + 1, dtype=idx.dtype,
                           device=idx.device).expand(idx.shape[0], -1)
@@ -120,7 +131,7 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lisec_gather_rows.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.lisec_gather_rows.restype = ctypes.c_int
-        lib.lisec_scatter_rows.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.lisec_scatter_rows.argtypes = [p, p, p, i, i, i, i, p]
         lib.lisec_scatter_rows.restype = ctypes.c_int
     return lib
 
@@ -133,15 +144,14 @@ def _check(table, idx, what, dtypes):
     if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != b:
         raise ValueError(f"idx must be ({b}, M) int32, got "
                          f"{tuple(idx.shape)} {idx.dtype}")
-    if idx.device != table.device:
+    if idx.get_device() != table.get_device() or idx.is_cuda != table.is_cuda:
         raise ValueError(f"idx is on {idx.device}, {what} on {table.device}")
     if min(b, rows, c, idx.shape[1]) < 1:
         raise ValueError(f"need every size >= 1, got {tuple(table.shape)} "
                          f"and {tuple(idx.shape)}")
-    for name, a in ((what, table), ("idx", idx)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if table.device.type not in ("cpu", "cuda"):
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{what} and idx must be contiguous")
+    if not (table.is_cuda or table.is_cpu):
         raise ValueError(f"unsupported device {table.device}")
 
 
@@ -151,7 +161,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     tensor launches the kernel."""
     global GATHER_LAUNCHES
     _check(src, idx, "src", tuple(_ELEM_BYTES))
-    if src.device.type == "cpu":
+    if not src.is_cuda:
         return gather_rows_reference(src, idx)
     b, n, c = src.shape
     m = idx.shape[1]
@@ -160,8 +170,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, m, c), dtype=src.dtype, device=src.device)
     err = _library().lisec_gather_rows(
         src.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, c,
-        _ELEM_BYTES[src.dtype],
-        torch.cuda.current_stream(src.device).cuda_stream)
+        _ELEM_BYTES[src.dtype], build.stream_of(src))
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: "
                            f"cudaError {err}")
@@ -176,20 +185,20 @@ def scatter_rows(vals: torch.Tensor, idx: torch.Tensor, *,
     tensor takes the plain version; a CUDA tensor launches the kernel."""
     global SCATTER_LAUNCHES
     _check(vals, idx, "vals", (torch.float32,))
+    if idx.shape[1] != vals.shape[1]:
+        raise ValueError(f"idx must have one id per row of vals, got "
+                         f"{tuple(idx.shape)} and {tuple(vals.shape)}")
     if num_rows < 1:
         raise ValueError(f"num_rows must be >= 1, got {num_rows}")
-    if vals.device.type == "cpu":
+    if not vals.is_cuda:
         return scatter_rows_reference(vals, idx, num_rows=num_rows)
     b, m, c = vals.shape
     if b * num_rows * c >= 2 ** 31 * 256:
         raise ValueError("the kernel's grid cannot cover this output")
-    _, order, offsets = sort_rows(idx, num_rows)
-    out = torch.empty((b, num_rows, c), dtype=torch.float32,
-                      device=vals.device)
+    out = vals.new_empty((b, num_rows, c))
     err = _library().lisec_scatter_rows(
-        vals.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), b, m, num_rows, c,
-        torch.cuda.current_stream(vals.device).cuda_stream)
+        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), b, m, num_rows, c,
+        build.stream_of(vals))
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: "
                            f"cudaError {err}")

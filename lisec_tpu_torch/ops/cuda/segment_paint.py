@@ -31,14 +31,27 @@ assigner's table (107,136 anchors, 131,072 rows, C = 3) at most 3.4 MB.
 All are bound by bytes, mostly the table write. ``chip_smoke.py``
 computes the bound from the ids of the run it times.
 
-Design (simple first): torch finds each cell's row range with
-``searchsorted`` (the only intermediate, (B, num_cells + 1) int32); the
-kernel runs one thread per output element, walks that cell's rows and
-writes its element exactly once, empty cells included. Threads are
-numbered in each output part's memory order, per cloud and in 32 bits
-(64-bit divisions per thread cost the kernel more than its stores). No
-atomics: sums are taken in row order (in f64, rounded once), so a run
-repeats bit for bit.
+Design: one launch, no glue (no ``searchsorted`` in torch). A block owns
+a tile of consecutive cells of one cloud (up to 1024; fewer for wide
+tables, and fewer where the grid would leave multiprocessors idle). Two
+of its warps find the tile's rows with a 32-way search of the sorted ids,
+clamped to ``num_cells`` as they are read (so an invalid tail need not be
+sorted within itself, and negative ids at the head sort before every
+cell); the block walks those rows once and marks in shared memory where
+each of its cells starts. The tile's rows are one contiguous run of
+``vals``: the block stages it through shared memory a piece at a time,
+and owner threads fold each row into their cell's running max or f64
+sum from there, in row order, carrying a cell into the next piece (a
+near-range pillar holds over 200 points, and its owner's chain of
+additions then waits on shared memory, not device memory). Every
+element is written once, empty cells included: four channels of one
+cell a thread, stored as one 16-byte vector, where the part's width is a
+multiple of 4 (a warp stores 512 contiguous bytes), else one channel a
+thread (the count channel of ``split``: one coalesced float a cell). A
+thread's cells and channels follow from the tile, with no division per
+element. No atomics: sums are taken in row order in f64 and rounded
+once, as before, so a run repeats bit for bit and equals the plain
+version.
 
 On a CPU tensor ``segment_paint`` computes the plain version
 ``segment_paint_reference``; on a CUDA tensor it launches the kernel or
@@ -67,18 +80,6 @@ KERNEL_INFO = {
 }
 
 EMPTY_MAX = -3.0e38
-
-
-def segment_offsets(cell_sorted: torch.Tensor, num_cells: int
-                    ) -> torch.Tensor:
-    """(B, num_cells + 1) int32: the rows of cell c of cloud b are
-    ``[offsets[b, c], offsets[b, c + 1])``. Ids above ``num_cells`` are
-    clamped first, so an invalid tail need not be sorted within itself."""
-    b = cell_sorted.shape[0]
-    bounds = torch.arange(num_cells + 1, dtype=torch.int32,
-                          device=cell_sorted.device).expand(b, -1)
-    return torch.searchsorted(cell_sorted.clamp(max=num_cells),
-                              bounds.contiguous(), out_int32=True)
 
 
 def segment_paint_reference(vals: torch.Tensor, cell_sorted: torch.Tensor,
@@ -123,25 +124,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def launch_paint_kernel(vals: torch.Tensor, offsets: torch.Tensor,
-                        out: torch.Tensor, *, num_max: int,
-                        out_tail: Optional[torch.Tensor] = None) -> None:
-    """Launch the CUDA kernel alone on the glue's offsets (the wrapper's
-    inner step; benchmarks time it on its own). ``out`` takes channels
-    ``[0, out.shape[2])`` and ``out_tail`` the rest, if any."""
-    global LAUNCHES
-    b, n, c = vals.shape
-    err = _library().lisec_segment_paint(
-        vals.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        None if out_tail is None else out_tail.data_ptr(), b, n,
-        out.shape[1], c, num_max, out.shape[2],
-        torch.cuda.current_stream(vals.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"segment_paint kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-
-
 def _check(vals, cell_sorted, num_cells, num_max, split):
     if vals.dtype != torch.float32 or vals.dim() != 3:
         raise ValueError(f"vals must be (B, N, C) float32, got "
@@ -150,7 +132,8 @@ def _check(vals, cell_sorted, num_cells, num_max, split):
     if cell_sorted.dtype != torch.int32 or cell_sorted.shape != (b, n):
         raise ValueError(f"cell_sorted must be ({b}, {n}) int32, got "
                          f"{tuple(cell_sorted.shape)} {cell_sorted.dtype}")
-    if cell_sorted.device != vals.device:
+    if (cell_sorted.get_device() != vals.get_device()
+            or cell_sorted.is_cuda != vals.is_cuda):
         raise ValueError(f"cell_sorted is on {cell_sorted.device}, vals on "
                          f"{vals.device}")
     if b < 1 or c < 1 or num_cells < 1 or not 0 <= num_max <= c:
@@ -159,11 +142,12 @@ def _check(vals, cell_sorted, num_cells, num_max, split):
                          f"num_max={num_max}")
     if split is not None and not 0 < split < c:
         raise ValueError(f"need 0 < split < C, got split={split} C={c}")
-    if num_cells * c >= 2 ** 31 or b > 65535:
+    if num_cells * c >= 2 ** 31:
         raise ValueError("the kernel's grid cannot cover this table")
-    for name, a in (("vals", vals), ("cell_sorted", cell_sorted)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not (vals.is_contiguous() and cell_sorted.is_contiguous()):
+        raise ValueError("vals and cell_sorted must be contiguous")
+    if not (vals.is_cuda or vals.is_cpu):
+        raise ValueError(f"unsupported device {vals.device}")
 
 
 def segment_paint(vals: torch.Tensor, cell_sorted: torch.Tensor, *,
@@ -174,21 +158,22 @@ def segment_paint(vals: torch.Tensor, cell_sorted: torch.Tensor, *,
     ``split``, the pair of its channels ``[0, split)`` and ``[split, C)``,
     each contiguous. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel."""
+    global LAUNCHES
     _check(vals, cell_sorted, num_cells, num_max, split)
-    if vals.device.type == "cpu":
+    if not vals.is_cuda:
         return segment_paint_reference(vals, cell_sorted,
                                        num_cells=num_cells, num_max=num_max,
                                        split=split)
-    if vals.device.type != "cuda":
-        raise ValueError(f"unsupported device {vals.device}")
-    offsets = segment_offsets(cell_sorted, num_cells)
-    b, _, c = vals.shape
-    out = torch.empty((b, num_cells, c if split is None else split),
-                      dtype=torch.float32, device=vals.device)
-    if split is None:
-        launch_paint_kernel(vals, offsets, out, num_max=num_max)
-        return out
-    tail = torch.empty((b, num_cells, c - split), dtype=torch.float32,
-                       device=vals.device)
-    launch_paint_kernel(vals, offsets, out, num_max=num_max, out_tail=tail)
-    return out, tail
+    b, n, c = vals.shape
+    out = vals.new_empty((b, num_cells, c if split is None else split))
+    tail = None if split is None else vals.new_empty(
+        (b, num_cells, c - split))
+    err = _library().lisec_segment_paint(
+        vals.data_ptr(), cell_sorted.data_ptr(), out.data_ptr(),
+        None if tail is None else tail.data_ptr(), b, n, num_cells, c,
+        num_max, out.shape[2], build.stream_of(vals))
+    if err != 0:
+        raise RuntimeError(
+            f"segment_paint kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out if tail is None else (out, tail)

@@ -195,6 +195,53 @@ def test_scatter_equals_pallas_and_numpy(case):
         assert not got[:, :-1].any()
 
 
+def _scatter_edge(case, rng):
+    """(vals, idx, num_rows) at the edges of the kernel's tiling: tables of
+    no multiple of a tile, one id, one target with more rows than the
+    kernel's 2048-id chunk, ids dropped beyond both ends."""
+    if case == "rows33":
+        b, m, c, r = 2, 300, 5, 33
+        idx = rng.integers(-3, r + 3, (b, m))
+    elif case == "rows1000":
+        b, m, c, r = 2, 1500, 4, 1000
+        idx = rng.integers(-3, r + 3, (b, m))
+    elif case == "m1":
+        b, m, c, r = 3, 1, 3, 3
+        idx = np.array([[0], [2], [-1]])
+    elif case == "one_target_over_a_chunk":
+        b, m, c, r = 1, 2600, 4, 40
+        idx = rng.integers(0, r, (b, m))
+        idx[0, rng.choice(m, 2200, replace=False)] = 17
+    else:                                  # dropped_both_sides
+        b, m, c, r = 2, 400, 8, 50
+        idx = np.where(rng.random((b, m)) < 0.5,
+                       rng.integers(-40, 0, (b, m)),
+                       rng.integers(r, r + 40, (b, m)))
+        idx[:, ::7] = rng.integers(0, r, (b, len(idx[0, ::7])))
+    vals = rng.normal(size=(b, m, c)).astype(np.float32)
+    return vals, np.ascontiguousarray(idx).astype(np.int32), r
+
+
+@pytest.mark.parametrize("case", ["rows33", "rows1000", "m1",
+                                  "one_target_over_a_chunk",
+                                  "dropped_both_sides"])
+def test_scatter_tiling_edges_equal_pallas_and_numpy(case):
+    rng = np.random.default_rng(len(case) + 50)
+    vals, idx, num_rows = _scatter_edge(case, rng)
+    got = gr.scatter_rows(_t(vals), _t(idx), num_rows=num_rows).numpy()
+    # The numpy loop adds in f32 in m order, as the kernel does: equal to
+    # the bit. The Pallas kernel's two bf16 terms: 2e-4 of the largest sum.
+    np.testing.assert_array_equal(got, _scatter_np(vals, idx, num_rows))
+    scale = max(np.abs(got).max(), 1.0)
+    want = np.asarray(scatter_rows_mxu(jnp.asarray(vals), jnp.asarray(idx),
+                                       num_rows=num_rows, tile_m=128,
+                                       interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * scale)
+    landed = np.zeros(num_rows, bool)
+    landed[idx[(idx >= 0) & (idx < num_rows)]] = True
+    assert not got[:, ~landed].any()
+
+
 def test_scatter_plain_version_adds_in_m_order():
     """Equal ids are summed in m order, as the kernel's owner thread adds
     them: against a float32 loop in that order, bit for bit."""
@@ -262,6 +309,27 @@ def test_row_wrappers_refuse_what_the_kernels_cannot(bad):
             gr.scatter_rows(torch.zeros((2, 3, 4)), idx, num_rows=0)
         else:
             gr.gather_rows(src, idx)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "ids", "batch", "strided",
+                                 "empty", "length"])
+def test_scatter_wrapper_refuses_what_the_kernel_cannot(bad):
+    vals = torch.zeros((2, 3, 4))
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    if bad == "dtype":
+        vals = vals.half()
+    elif bad == "ids":
+        idx = idx.long()
+    elif bad == "batch":
+        idx = idx[:1]
+    elif bad == "strided":
+        vals = vals.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "empty":
+        vals, idx = vals[:, :0], idx[:, :0]
+    elif bad == "length":                  # one id per row of vals
+        idx = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gr.scatter_rows(vals, idx, num_rows=5)
 
 
 # -- ball query, 3-NN, grouping ---------------------------------------------

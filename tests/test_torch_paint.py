@@ -20,8 +20,7 @@ from lisec_tpu.ops.pallas.unpaint import segment_unpaint as jax_unpaint
 from lisec_tpu.ops.scatter import segment_max_sorted as jax_segmax
 from lisec_tpu.ops.scatter import segment_sum_dense as jax_segsum
 from lisec_tpu_torch.models.pillar_encoder import FusedPillarEncoder
-from lisec_tpu_torch.ops.cuda.segment_paint import (
-    segment_offsets, segment_paint)
+from lisec_tpu_torch.ops.cuda.segment_paint import segment_paint
 from lisec_tpu_torch.ops.cuda.segment_unpaint import segment_unpaint
 from lisec_tpu_torch.ops.scatter import (
     segment_max_sorted, segment_sum_dense)
@@ -117,13 +116,83 @@ def test_paint_plain_matches_pallas(split, case, n):
                                atol=2e-5)
 
 
+def _paint_np(vals, cell, nc, num_max):
+    """Row by row: the max in f32, the sum in f64 rounded once."""
+    b, n, c = vals.shape
+    out = np.zeros((b, nc, c), np.float64)
+    out[..., :num_max] = -3.0e38
+    for bi in range(b):
+        for i in range(n):
+            k = cell[bi, i]
+            if 0 <= k < nc:
+                out[bi, k, :num_max] = np.maximum(out[bi, k, :num_max],
+                                                  vals[bi, i, :num_max])
+                out[bi, k, num_max:] += vals[bi, i, num_max:]
+    return out.astype(np.float32)
+
+
+def _tiling_cells(case, rng, b, n, nc):
+    """Ids at the edges of the kernel's tiling: one cell spanning several
+    hundred rows, a table of no multiple of 128 cells, negative ids at the
+    head (with an invalid tail)."""
+    cell = np.sort(rng.integers(0, nc, (b, n)), -1)
+    if case == "long_cell":
+        cell[0, 100:800] = 301
+    elif case == "negative_head":
+        cell[:, :30] = np.sort(-rng.integers(1, 40, (b, 30)), -1)
+        cell[:, -25:] = nc + rng.integers(0, 50, (b, 25))
+    return np.sort(cell, -1) if case == "long_cell" else cell
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("case,nc", [("long_cell", 600),
+                                     ("cells_not_multiple_of_128", 1109),
+                                     ("negative_head", 600)])
+def test_paint_tiling_edges_match_pallas_and_numpy(split, case, nc):
+    c, num_max = SPLITS[split]
+    rng = np.random.default_rng(len(split) * 7 + nc)
+    b, n = 2, 1024
+    cell = _tiling_cells(case, rng, b, n, nc).astype(np.int32)
+    vals = rng.normal(size=(b, n, c)).astype(np.float32)
+    vals[..., c - 1] = 1.0
+    got = segment_paint(_t(vals), _t(cell), num_cells=nc,
+                        num_max=num_max).numpy()
+    want = _paint_np(vals, cell, nc, num_max)
+    np.testing.assert_array_equal(got[..., :num_max], want[..., :num_max])
+    np.testing.assert_allclose(got[..., num_max:], want[..., num_max:],
+                               rtol=2 ** -23, atol=0)
+    # The Pallas kernel (interpret) on the same ids, clamped above as its
+    # contract asks: max channels and counts exactly, sums to 1e-5.
+    jw, count = _jax_paint(vals, np.minimum(cell, nc), nc, num_max,
+                           exact=True)
+    np.testing.assert_array_equal(got[..., :num_max], jw[..., :num_max])
+    np.testing.assert_array_equal(got[..., c - 1], count)
+    np.testing.assert_allclose(got[..., num_max:], jw[..., num_max:],
+                               rtol=1e-5, atol=1e-5)
+    if case == "long_cell":
+        assert got[0, 301, c - 1] >= 700
+
+
 def test_paint_offsets_and_checks():
+    # Rows [1, 3) in cell 0, [3, 6) in cell 3; row 0 (negative) and rows
+    # 6, 7 (beyond the table) dropped. Channel 0 carries the row number
+    # (its max is a cell's last row), channel 1 ones (its sum the count):
+    # the painted table gives back each cell's range of rows.
     cell = _t(np.array([[-2, 0, 0, 3, 3, 3, 7, 9]], np.int32))
-    offs = segment_offsets(cell, 5)
-    assert offs.tolist() == [[1, 3, 3, 3, 6, 6]]
     vals = torch.ones((1, 8, 2))
+    vals[0, :, 0] = torch.arange(8.0)
     out = segment_paint(vals, cell, num_cells=5, num_max=1)
     assert out[0, :, 1].tolist() == [2.0, 0.0, 0.0, 3.0, 0.0]
+    last, count = out[0, :, 0], out[0, :, 1]
+    ranges = [(int(l - k + 1), int(l + 1)) for l, k in zip(last, count)
+              if k > 0]
+    assert ranges == [(1, 3), (3, 6)]
+    assert (last[count == 0] == -3.0e38).all()
+    # Many clouds: the kernel's grid has no limit on the batch.
+    many = segment_paint(torch.ones((70000, 1, 1)),
+                         torch.zeros((70000, 1), dtype=torch.int32),
+                         num_cells=1, num_max=0)
+    assert many.shape == (70000, 1, 1) and (many == 1).all()
     with pytest.raises(ValueError):
         segment_paint(vals.double(), cell, num_cells=5, num_max=1)
     with pytest.raises(ValueError):
