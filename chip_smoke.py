@@ -14,8 +14,10 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    ``segment_max_sorted`` forward and backward (f32 inputs, and
    bf16-valued inputs full of ties);
    ``spread_accumulate`` on the rulebooks of ray-cast scenes at SECOND's
-   full width and on edge cases, bit for bit, and the sparse conv's
-   ``Function`` forward and backward;
+   full width (the nine convs of a batch-8 predict; the submanifold ones
+   with the inverse map the encoder hands them, the strided ones also on
+   scratch filled with garbage) and on edge cases, bit for bit, and the
+   sparse conv's ``Function`` forward and backward;
 3. drive the inference path: full-width PointPillars inference
    (``configs/pointpillars_kitti.yaml``, bf16) with the trained snapshot
    ``weights/pointpillars_fixture_hard.npz`` on 8 ray-cast scenes, with
@@ -46,20 +48,23 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
 7. PointNet++ part segmentation (``configs/pointnet2_partseg_fixture_conv
    .yaml`` at full width: SSG, 16 categories, 50 parts, 2048 points,
    seed-initialised weights, fixture clouds): ``fps``, ``gather_rows``
-   and ``scatter_rows`` against their plain versions at the path's
-   shapes and on edge cases (the scatter's tiling among them); predict
-   through ``infer`` at batch 16 and 1 (2 FPS and 7 gather launches
-   each, nothing else), the kernel route
+   (plain gathers and the fused grouping) and ``scatter_rows`` against
+   their plain versions at the path's shapes and on edge cases (the
+   scatter's tiling among them); predict through ``infer`` at batch 16
+   and 1 (2 FPS and 6 gather launches each, nothing else), the kernel
+   route
    against the plain route; ``pointnet2_partseg_tiny`` on the card
    against the CPU; train steps at batch 16 (Adam, step schedule,
    augmentation; 3 scatter launches a step) held against the plain route
    with dropout made the identity, a short ``train(cfg)``; the predict by
    stage, the train step by part, every point-kernel call;
-8. list under ``torch.profiler`` what ``scatter_rows`` and
-   ``segment_paint`` calls run (the output's allocation and the
-   kernel's own launch, nothing else), then take the device time of
-   every timed call of the two (after the timed phases, so that no
-   trace touches them);
+8. list under ``torch.profiler`` what ``scatter_rows``,
+   ``segment_paint``, ``gather_rows``, the grouping and
+   ``spread_accumulate`` calls run (the outputs' allocation and the
+   kernels' own launches, nothing else), then take the device time of
+   every timed call of the paint, the scatter, the gathers and the
+   spreads of a batch-8 SECOND predict, by kernel (after the timed
+   phases, so that no trace touches them);
 9. print the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -73,6 +78,7 @@ exits nonzero before printing any result.
 import json
 import contextlib
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,22 +130,27 @@ def profiled(fn, iters: int):
     """``fn()`` ``iters`` times under ``torch.profiler`` (after one call
     outside it): the aten ops the host ran and the (name, microseconds)
     of every CUDA kernel the trace caught. A trace can miss the launches
-    of its first microseconds, so callers count what it caught."""
+    of its first microseconds, so callers count what it caught; one that
+    caught no launch at all (traces of a short loop have come back empty)
+    is taken again, twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ops, kernels = [], []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((e.name, e.time_range.elapsed_us()))
-        elif e.name.startswith("aten::"):
-            ops.append(e.name)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ops, kernels = [], []
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernels.append((e.name, e.time_range.elapsed_us()))
+            elif e.name.startswith("aten::"):
+                ops.append(e.name)
+        if kernels:
+            break
     return ops, kernels
 
 
@@ -149,15 +160,31 @@ def profiled(fn, iters: int):
 DEVICE_TIMED = []
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Mean milliseconds that the one CUDA kernel ``fn()`` launches spends
-    on the card, over the launches a profiler trace of ``iters`` calls
-    caught: the kernel's own time, without the host's share of the
-    call."""
+def kernel_label(name: str) -> str:
+    """A profiler kernel name without its namespace and parameters
+    (``spread_accumulate_kernel<__nv_bfloat16, 8>``); a memset keeps its
+    own name."""
+    m = re.search(r"(\w+)(<[^()]*>)?\(",
+                  name.replace("(anonymous namespace)::", ""))
+    return m.group(1) + (m.group(2) or "") if m else name
+
+
+def device_parts(fn, iters: int = 20):
+    """What ``fn()`` runs on the card, from a profiler trace of ``iters``
+    calls: by kernel (or memset), its mean milliseconds a launch and its
+    launches a call; and the sum a call, the kernels' own time without
+    the host's share. A trace can miss a launch or two, so the launches a
+    call are rounded from what it caught."""
     _, kernels = profiled(fn, iters)
     if not kernels:
         raise AssertionError("the profiler caught no kernel launch")
-    return sum(us for _, us in kernels) / len(kernels) / 1e3
+    by_name = {}
+    for name, us in kernels:
+        by_name.setdefault(kernel_label(name), []).append(us)
+    parts = {name: {"ms": sum(v) / len(v) / 1e3,
+                    "per_call": max(1, round(len(v) / iters))}
+             for name, v in by_name.items()}
+    return sum(p["ms"] * p["per_call"] for p in parts.values()), parts
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -804,12 +831,14 @@ def spread_bound(vals, targets, num_out):
                                  else "operations"), nbytes, landed
 
 
-def spread_call_row(vals, targets, num_out):
+def spread_call_row(vals, targets, num_out, sources=None, timed=False):
     """One ``spread_accumulate`` call timed on the tensors a path handed
-    it: the kernel, its plain version, its bound, and ``index_add_`` as
-    the one PyTorch call for the same function (f32 atomics in no fixed
-    order; it takes f32 values, so a bf16 stream's conversion is timed
-    with it)."""
+    it (with the inverse map where the path handed one, as for a
+    submanifold conv): the kernel, its plain version, its bound, and
+    ``index_add_`` as the one PyTorch call for the same function (f32
+    atomics in no fixed order; it takes f32 values, so a bf16 stream's
+    conversion is timed with it). ``timed``: the kernels' own time is
+    taken at the end (``device_ms``)."""
     import torch
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     b, k, n, c = vals.shape
@@ -819,17 +848,24 @@ def spread_call_row(vals, targets, num_out):
             + torch.arange(b, device="cuda")[:, None, None] * (num_out + 1)
             ).reshape(-1)
     flat = vals.reshape(-1, c)
-    return dict(
+
+    def call():
+        return sa.spread_accumulate(vals, targets, num_out=num_out,
+                                    sources=sources)
+    row = dict(
         vals=list(vals.shape), dtype=str(vals.dtype), num_out=num_out,
+        inverse_map="given" if sources is not None else "built",
         rows_landed=landed, rows_total=b * k * n,
-        ms=cuda_ms(lambda: sa.spread_accumulate(vals, targets,
-                                                num_out=num_out), 20),
+        ms=cuda_ms(call, 20),
         plain_ms=cuda_ms(lambda: sa.spread_accumulate_reference(
             vals, targets, num_out=num_out), 3),
         library_ms=cuda_ms(lambda: torch.zeros(
             (b * (num_out + 1), c), device="cuda").index_add_(
                 0, rows, flat.float()), 10),
         bound_ms=bound, bound_by=by, bytes=nbytes)
+    if timed:
+        DEVICE_TIMED.append(("spread_accumulate", row, call))
+    return row
 
 
 def paint_call_row(vals, ids, nc, num_max, split):
@@ -923,9 +959,11 @@ def phase_train_timing(name, pipe, cfg, batch):
         calls["segment_unpaint"].append((table.detach(), ids))
         return su.segment_unpaint(table, ids)
 
-    def rec_spread(vals, targets, *, num_out):
-        calls["spread_accumulate"].append((vals.detach(), targets, num_out))
-        return sa.spread_accumulate(vals, targets, num_out=num_out)
+    def rec_spread(vals, targets, *, num_out, sources=None):
+        calls["spread_accumulate"].append((vals.detach(), targets, num_out,
+                                           sources))
+        return sa.spread_accumulate(vals, targets, num_out=num_out,
+                                    sources=sources)
 
     with swapped_segment_ops(rec_paint, rec_unpaint, rec_spread):
         loss_and_grads(pipe, batch)
@@ -1064,7 +1102,8 @@ def phase_timing(pipe, cfg):
 
 def recorded_sparse_convs(pipe, dev):
     """One eval forward on a device batch with a hook on every sparse
-    conv: [(layer, feats, out_of, valid)] in the encoder's order."""
+    conv: [(layer, feats, out_of, valid[, sources])] in the encoder's
+    order (a submanifold conv also takes its inverse map)."""
     import torch
     seen = []
     hooks = [layer.register_forward_pre_hook(
@@ -1078,19 +1117,60 @@ def recorded_sparse_convs(pipe, dev):
     return seen
 
 
+def inverse_map(targets, num_out):
+    """The exact inverse of a scatter rulebook, built here with torch
+    alone: (B, K, num_out) int32, entry [b, k, t] the n with
+    ``targets[b, k, n] == t``, else -1."""
+    import torch
+    b, k, n = targets.shape
+    ok = (targets >= 0) & (targets < num_out)
+    inv = torch.full((b, k, num_out + 1), -1, dtype=torch.int32,
+                     device=targets.device)
+    rows = torch.arange(n, dtype=torch.int32,
+                        device=targets.device).expand(b, k, n)
+    inv.scatter_(2, torch.where(ok, targets, num_out).long(),
+                 torch.where(ok, rows, -1))
+    return inv[..., :num_out].contiguous()
+
+
+def spread_on_scratch(vals, targets, num_out, scratch):
+    """The spread kernel's two-launch route (the invert, which clears
+    and fills the map, then the accumulate) on scratch that the caller
+    filled, straight through the library's entry point: the wrapper
+    always takes fresh scratch."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import build
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    b, k, n, c = vals.shape
+    if sa._spread_fn is None:
+        sa._bind()
+    out = torch.empty((b, num_out, c), device="cuda")
+    err = sa._spread_fn(vals.data_ptr(), targets.data_ptr(),
+                        scratch.data_ptr(), out.data_ptr(), b, k, n, c,
+                        num_out, vals.dtype == torch.bfloat16, False,
+                        build.stream_of(vals))
+    if err != 0:
+        raise AssertionError(f"spread_accumulate on scratch: cudaError {err}")
+    return out
+
+
 def phase_spread_kernel_check(pipe, cfg, gen):
     """``spread_accumulate`` on the card against its plain version, bit
     for bit and twice: on the scatter rulebooks of ray-cast scenes at
-    SECOND's full width, on edge cases, and through the sparse conv's
-    ``Function`` forward and backward. Returns the largest |difference|
-    from the plain version that it saw."""
+    SECOND's full width (all nine convs of a batch-8 predict, the six
+    submanifold ones with the inverse map the encoder hands them, which
+    must equal the inverse built here; the three strided ones also on
+    scratch filled with garbage, and one at batch 1), on edge cases, and
+    through the sparse conv's ``Function`` forward and backward. Returns
+    the largest |difference| from the plain version that it saw."""
     import torch
     from lisec_tpu_torch.ops import sparse_conv
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
-    batch, _ = scene_batch(cfg, 4)
+    batch, _ = scene_batch(cfg, 8)
     convs = recorded_sparse_convs(pipe, pipe.device_batch(batch))
-    if len(convs) != 9:
-        raise AssertionError(f"{len(convs)} sparse convs recorded")
+    if len(convs) != 9 or sum(len(c) == 5 for c in convs) != 6:
+        raise AssertionError(f"{len(convs)} sparse convs recorded, "
+                             f"{sum(len(c) == 5 for c in convs)} with a map")
     gen = torch.Generator(device="cuda").manual_seed(gen.initial_seed())
 
     def randn(shape, dtype):
@@ -1098,12 +1178,20 @@ def phase_spread_kernel_check(pipe, cfg, gen):
 
     worst = 0.0
 
-    def check(what, vals, targets, num_out):
+    def check(what, vals, targets, num_out, sources=None, scratch=None):
         nonlocal worst
-        got = sa.spread_accumulate(vals, targets, num_out=num_out)
+        if scratch is None:
+            def run():
+                return sa.spread_accumulate(vals, targets, num_out=num_out,
+                                            sources=sources)
+        else:
+            def run():
+                return spread_on_scratch(vals, targets, num_out,
+                                         scratch.clone())
+        got = run()
         torch.cuda.synchronize()
         ref = sa.spread_accumulate_reference(vals, targets, num_out=num_out)
-        again = sa.spread_accumulate(vals, targets, num_out=num_out)
+        again = run()
         err = float((got - ref).abs().max())
         worst = max(worst, err)
         if not torch.equal(got, ref):
@@ -1119,21 +1207,54 @@ def phase_spread_kernel_check(pipe, cfg, gen):
         hits.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
         emit("kernel_check", kernel="spread_accumulate", case=what,
              vals=list(vals.shape), dtype=str(vals.dtype), num_out=num_out,
+             inverse_map=("given" if sources is not None else
+                          "built on garbage scratch" if scratch is not None
+                          else "built"),
              rows_landed=int(landed.sum()), rows_total=targets.numel(),
              most_offsets_on_one_row=int(hits[:, :num_out].max()),
              output_rows_hit=int((hits[:, :num_out] > 0).sum()),
              bit_equal=True, two_runs_identical=True, max_abs_err=err)
         return got
 
-    # Level-0 submanifold (N 16,000, C 16), level-2 submanifold (N 26,624,
-    # C 64) and the strided conv into level 3 (26,624 -> 18,432 rows).
+    def garbage(b, k, num_out, n, kind):
+        """Scratch as the allocator may hand it over: ids inside [0, N)
+        that name wrong rows, or random bits."""
+        if kind == "rows":
+            return torch.randint(-3, n + 3, (b, k, num_out), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (b, k, num_out),
+                             generator=gen, device="cuda", dtype=torch.int32)
+
+    # Every conv of the path, bf16 as the path runs it: the submanifold
+    # ones with their map (equal to the inverse built here), the strided
+    # ones with the map built by the kernel, fresh and on garbage scratch.
+    for i, (layer, _, out_of, valid, *given) in enumerate(convs):
+        b, k, n = out_of.shape
+        num_out, c = valid.shape[1], layer.weight.shape[2]
+        vals = randn((b, k, n, c), torch.bfloat16)
+        if given:
+            if not torch.equal(given[0], inverse_map(out_of, num_out)):
+                raise AssertionError(f"conv {i}: the encoder's inverse map "
+                                     "differs from the rulebook's inverse")
+            check(f"conv{i}_subm", vals, out_of, num_out, sources=given[0])
+            continue
+        check(f"conv{i}_down", vals, out_of, num_out)
+        for kind in ("rows", "bits"):
+            check(f"conv{i}_down_garbage_{kind}", vals, out_of, num_out,
+                  scratch=garbage(b, k, num_out, n, kind))
+        if i == 8:
+            one = out_of[:1].contiguous()
+            check("conv8_down_batch1_garbage_rows", vals[:1].contiguous(),
+                  one, num_out, scratch=garbage(1, k, num_out, n, "rows"))
+    # f32 streams on the level-0 and level-2 submanifold and the last
+    # strided conv.
     for what, i in (("level0_subm", 0), ("level2_subm", 6),
                     ("level2_down", 8)):
-        layer, _, out_of, valid = convs[i]
+        layer, _, out_of, valid, *given = convs[i]
         b, k, n = out_of.shape
-        c = layer.weight.shape[2]
-        for dtype in (torch.bfloat16, torch.float32):
-            check(what, randn((b, k, n, c), dtype), out_of, valid.shape[1])
+        check(what + "_f32", randn((b, k, n, layer.weight.shape[2]),
+                                   torch.float32), out_of, valid.shape[1],
+              sources=given[0] if given else None)
 
     b, k, n, num_out = 2, 27, 4096, 4096
     ident = torch.arange(n, dtype=torch.int32).expand(b, k, n).contiguous()
@@ -1145,22 +1266,43 @@ def phase_spread_kernel_check(pipe, cfg, gen):
             ("every_output_hit_by_all_offsets", ident, 64),
             ("all_streams_onto_the_last_row", last, 32),
             ("one_channel", ident.flip(2).contiguous(), 1),
-            ("odd_channels", ident, 5)):
+            ("odd_channels", ident, 5),
+            ("wide_rows", ident.flip(2).contiguous(), 384)):
+        targets = targets.cuda()
         for dtype in (torch.bfloat16, torch.float32):
-            got = check(what, randn((b, k, n, c), dtype), targets.cuda(),
-                        num_out)
+            vals = randn((b, k, n, c), dtype)
+            got = check(what, vals, targets, num_out)
+            check(what + "_given_map", vals, targets, num_out,
+                  sources=inverse_map(targets, num_out))
+            check(what + "_garbage_rows", vals, targets, num_out,
+                  scratch=garbage(b, k, num_out, n, "rows"))
             if "dropped" in what and got.any():
                 raise AssertionError(f"{what}: a dropped row landed")
             if what == "all_streams_onto_the_last_row" and (
                     got[:, :-1].any() or not got[:, -1].any()):
                 raise AssertionError(f"{what}: rows beside the last")
+    # K above the 32 offsets a warp takes at a time, a table of one row,
+    # a vals pointer off 16 bytes.
+    tg = torch.stack([torch.randperm(600, generator=gen, device="cuda")
+                      for _ in range(2 * 40)]).view(2, 40, 600)
+    check("k40", randn((2, 40, 600, 16), torch.bfloat16),
+          (tg - 50).to(torch.int32).contiguous(), 500)
+    check("one_output_row", randn((1, 3, 4, 8), torch.float32),
+          torch.tensor([[[0, -1, -1, -1], [-1, 0, -1, -1], [-1, -1, -1, 0]]],
+                       dtype=torch.int32, device="cuda"), 1)
+    off = randn((2 * 27 * 512 * 16 + 1,), torch.bfloat16)[1:].view(
+        2, 27, 512, 16)
+    if off.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned case is aligned")
+    check("vals_not_16_byte_aligned", off, ident[:, :, :512].cuda()
+          .contiguous(), 512)
 
     # The conv's Function, kernels against plain versions: the same
     # products around them, so the forward must be bit-equal; the
     # backward's two products take the gathered rows, bit-equal too, and
     # are held to 1e-6 of their L2 norm.
     for i in (0, 8):
-        layer, feats, out_of, valid = convs[i]
+        layer, feats, out_of, valid, *given = convs[i]
         g = randn((feats.shape[0], valid.shape[1], layer.weight.shape[2]),
                   torch.float32)
         outs = []
@@ -1170,7 +1312,8 @@ def phase_spread_kernel_check(pipe, cfg, gen):
             with torch.enable_grad(), (plain_segment_ops() if plain
                                        else contextlib.nullcontext()):
                 y = sparse_conv.sparse_conv3d_spread(
-                    x, out_of, w, v_out=valid.shape[1])
+                    x, out_of, w, v_out=valid.shape[1],
+                    sources=given[0] if given else None)
                 (y * g).sum().backward()
             torch.cuda.synchronize()
             outs.append((y.detach(), x.grad.float(), w.grad.float()))
@@ -1184,6 +1327,7 @@ def phase_spread_kernel_check(pipe, cfg, gen):
                                  f"the plain Function by {rel}")
         emit("kernel_check", kernel="sparse_conv3d_spread", conv=i,
              features=list(feats.shape), out_rows=valid.shape[1],
+             inverse_map="given" if given else "built",
              forward="bit-equal", grad_rel_l2=rel,
              backward_bit_equal=all(torch.equal(a, p) for a, p in
                                     zip(outs[0][1:], outs[1][1:])))
@@ -1357,9 +1501,10 @@ def phase_second_timing(pipe, cfg):
 
         calls, paints = [], []
 
-        def rec_spread(vals, targets, *, num_out):
-            calls.append((vals, targets, num_out))
-            return sa.spread_accumulate(vals, targets, num_out=num_out)
+        def rec_spread(vals, targets, *, num_out, sources=None):
+            calls.append((vals, targets, num_out, sources))
+            return sa.spread_accumulate(vals, targets, num_out=num_out,
+                                        sources=sources)
 
         def rec_paint(vals, ids, *, num_cells, num_max, split=None):
             paints.append((vals, ids, num_cells, num_max, split))
@@ -1368,7 +1513,7 @@ def phase_second_timing(pipe, cfg):
         with swapped_segment_ops(rec_paint, su.segment_unpaint,
                                  rec_spread), torch.no_grad():
             pipe.predict(dev)
-        rows[b] = ([spread_call_row(*call) for call in calls],
+        rows[b] = ([spread_call_row(*call, timed=b == 8) for call in calls],
                    [paint_call_row(*call) for call in paints] if b == 8
                    else [])
         for kernel, per_call in zip(("spread_accumulate", "segment_paint"),
@@ -1385,16 +1530,19 @@ def phase_second_timing(pipe, cfg):
 PARTSEG_CFG = os.path.join(ROOT, "configs",
                            "pointnet2_partseg_fixture_conv.yaml")
 PARTSEG_TINY_CFG = os.path.join(ROOT, "configs", "pointnet2_partseg_tiny.yaml")
-# The gathers of a full-width predict at batch 16: (source rows, C, ids per
-# cloud); and the scatters of its train step: (rows, C, table rows).
-PARTSEG_GATHER_SHAPES = ((2048, 3, 512), (2048, 3, 16384), (512, 3, 128),
-                         (512, 3, 8192), (512, 128, 8192), (128, 256, 1536),
+# The plain gathers of a full-width predict at batch 16: (source rows, C,
+# ids per cloud); its two groupings (the gather launch that also subtracts
+# the centres and writes the MLP's input): (points, feature channels or
+# None, centres, neighbours); and the scatters of its train step: (rows,
+# C, table rows).
+PARTSEG_GATHER_SHAPES = ((2048, 3, 512), (512, 3, 128), (128, 256, 1536),
                          (512, 128, 6144))
+PARTSEG_GROUP_SHAPES = ((2048, None, 512, 32), (512, 128, 128, 64))
 PARTSEG_SCATTER_SHAPES = ((8192, 128, 512), (1536, 256, 128),
                           (6144, 128, 512))
 PARTSEG_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 0, "segment_unpaint": 0,
-    "spread_accumulate": 0, "fps": 2, "gather_rows": 7, "scatter_rows": 0}
+    "spread_accumulate": 0, "fps": 2, "gather_rows": 6, "scatter_rows": 0}
 PARTSEG_LAUNCHES_PER_TRAIN_STEP = {**PARTSEG_LAUNCHES_PER_PREDICT,
                                    "scatter_rows": 3}
 
@@ -1422,15 +1570,18 @@ def zero_all_launches():
 
 
 @contextlib.contextmanager
-def swapped_point_ops(fps, gather, scatter):
-    """Swap ``fps`` (as ``ops/fps.py`` calls it), ``gather_rows`` and
-    ``scatter_rows`` (as ``GatherRows`` calls them), here only: the
-    package has no switch on the card."""
+def swapped_point_ops(fps, gather, scatter, group):
+    """Swap ``fps`` (as ``ops/fps.py`` calls it), ``gather_rows``,
+    ``scatter_rows`` and ``group_and_decorate`` (as ``GatherRows`` and
+    ``GroupAndDecorate`` call them), here only: the package has no switch
+    on the card."""
     from lisec_tpu_torch.ops import fps as fps_op
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
     saved = [(fps_op, "fps", fps_op.fps), (gr, "gather_rows", gr.gather_rows),
-             (gr, "scatter_rows", gr.scatter_rows)]
+             (gr, "scatter_rows", gr.scatter_rows),
+             (gr, "group_and_decorate", gr.group_and_decorate)]
     fps_op.fps, gr.gather_rows, gr.scatter_rows = fps, gather, scatter
+    gr.group_and_decorate = group
     try:
         yield
     finally:
@@ -1443,7 +1594,8 @@ def plain_point_ops():
     from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
     return swapped_point_ops(fk.fps_reference, gr.gather_rows_reference,
-                             gr.scatter_rows_reference)
+                             gr.scatter_rows_reference,
+                             gr.group_and_decorate_reference)
 
 
 def partseg_batch(pipe, cfg, b, split="test"):
@@ -1505,30 +1657,81 @@ def phase_point_kernel_check(pipe, cfg, gen):
     check_fps("batch_1_m_equals_n", pts[2:3].contiguous(), mask[2:3].clone(),
               n)
 
+    def same_bits(a, b):
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+        return a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
+
     def check_gather(what, src, idx):
         got = gr.gather_rows(src, idx)
         torch.cuda.synchronize()
         ref = gr.gather_rows_reference(src, idx)
-        if not torch.equal(got, ref):
+        if not same_bits(got, ref):
             raise AssertionError(f"gather_rows {what} {src.dtype}: "
                                  f"{int((got != ref).sum())} elements differ")
         emit("kernel_check", kernel="gather_rows", case=what,
              src=list(src.shape), ids=list(idx.shape), dtype=str(src.dtype),
-             bit_equal=True)
+             src_16_byte_aligned=src.data_ptr() % 16 == 0, bit_equal=True)
+
+    def check_group(what, xyz, feats, centers, idx):
+        got = gr.group_and_decorate(xyz, feats, centers, idx)
+        torch.cuda.synchronize()
+        ref = gr.group_and_decorate_reference(xyz, feats, centers, idx)
+        if not same_bits(got, ref):
+            raise AssertionError(f"group_and_decorate {what}: "
+                                 f"{int((got != ref).sum())} elements differ")
+        emit("kernel_check", kernel="gather_rows", case="group_" + what,
+             xyz=list(xyz.shape), features=None if feats is None
+             else list(feats.shape), centers=list(centers.shape),
+             ids=list(idx.shape), bit_equal=True)
+
+    def ids(b, m, n):                   # -3 .. n + 2: beyond both ends
+        out = torch.randint(-3, n + 3, (b, m), generator=g, device="cuda",
+                            dtype=torch.int32)
+        edge = torch.tensor([-1, n, n - 1], dtype=torch.int32)
+        out[0, :3] = edge[:m]
+        return out
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
 
     for rows, c, m in PARTSEG_GATHER_SHAPES:
         idx = torch.randint(0, rows, (16, m), generator=g, device="cuda",
                             dtype=torch.int32)
-        src = torch.randn((16, rows, c), generator=g, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
-            check_gather("full_width", src.to(dtype), idx)
-    for c in (1, 3, 5, 64):
-        src = torch.randn((4, 100, c), generator=g, device="cuda")
-        idx = torch.randint(-3, 104, (4, 333), generator=g, device="cuda",
-                            dtype=torch.int32)         # -1.. and >= N
-        idx[0, :3] = torch.tensor([-1, 100, 99], dtype=torch.int32)
+            check_gather("full_width", randn(16, rows, c).to(dtype), idx)
+    # The groupings at the path's shapes, and their two gathers alone.
+    for n, c, m, k in PARTSEG_GROUP_SHAPES:
+        xyz = torch.rand((16, n, 3), generator=g, device="cuda")
+        feats = None if c is None else randn(16, n, c)
+        idx = torch.randint(0, n, (16, m, k), generator=g, device="cuda",
+                            dtype=torch.int32)
+        check_group("full_width", xyz, feats, xyz[:, :m].contiguous(), idx)
+        for src in (xyz, feats):
+            if src is not None:
+                check_gather("full_width", src, idx.view(16, m * k))
+    for c in (1, 3, 5, 64, 128, 256):
+        src = randn(4, 100, c)
+        idx = ids(4, 333, 100)
         for dtype in (torch.float32, torch.bfloat16):
             check_gather(f"ids_out_of_range_c{c}_m333", src.to(dtype), idx)
+            check_gather(f"m1_c{c}", src.to(dtype), idx[:, :1].contiguous())
+        # A source off 16 bytes (one element in): narrower units.
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = randn(4 * 100 * c + 1).to(dtype)
+            check_gather(f"src_not_16_byte_aligned_c{c}",
+                         flat[1:].view(4, 100, c), idx)
+        xyz = randn(4, 100, 3)
+        centers = randn(4, 37, 3)
+        for feats in (None, src):
+            fc = "none" if feats is None else c
+            check_group(f"ids_out_of_range_c{fc}", xyz, feats, centers,
+                        ids(4, 37 * 9, 100).view(4, 37, 9))
+            check_group(f"m1_k1_c{fc}", xyz, feats, centers[:, :1]
+                        .contiguous(), ids(4, 1, 100).view(4, 1, 1))
+        off = randn(4 * 100 * (c + 3) + 1)[1:]
+        check_group(f"pointers_not_16_byte_aligned_c{c}",
+                    off[:1200].view(4, 100, 3), off[1200:].view(4, 100, c),
+                    centers, ids(4, 37 * 9, 100).view(4, 37, 9))
 
     def check_scatter(what, vals, idx, num_rows):
         got = gr.scatter_rows(vals, idx, num_rows=num_rows)
@@ -1586,12 +1789,6 @@ def phase_point_kernel_check(pipe, cfg, gen):
     # M = 1; M above a 2048-id chunk (2^16 + 5, repeat-filled); 5,000 rows
     # of 8192 on one target (more than a chunk); a vals pointer that is not
     # 16-byte aligned (a contiguous view at an offset of one float).
-    def ids(b, m, r):
-        return torch.randint(-3, r + 3, (b, m), generator=g, device="cuda",
-                             dtype=torch.int32)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda")
     for r in (33, 1000):
         for c in (1, 3, 5, 128, 256):
             check_scatter(f"rows{r}_c{c}", randn(4, 3000, c), ids(4, 3000, r),
@@ -1621,7 +1818,7 @@ def phase_point_kernel_check(pipe, cfg, gen):
 
 def phase_partseg_serving(pipe, cfg):
     """Full-width PointNet++ predict at batch 16 and 1 through ``infer``:
-    launches (2 FPS and 7 gathers per predict, nothing else), outputs,
+    launches (2 FPS and 6 gathers per predict, nothing else), outputs,
     and the kernel route against the plain route on the card."""
     import torch
     from lisec_tpu_torch.api import infer
@@ -1708,7 +1905,7 @@ def partseg_loss_and_grads(pipe, batch):
 
 def phase_partseg_train():
     """Full-width PointNet++ train steps at batch 16 (Adam, the step
-    schedule, augmentation on) through ``train_step``: launches (2 FPS, 7
+    schedule, augmentation on) through ``train_step``: launches (2 FPS, 6
     gathers, 3 scatters a step), finite loss, every tensor moved; the first
     step's loss and gradients against the same step over the plain
     versions, dropout made the identity for that comparison; then a short
@@ -1843,14 +2040,67 @@ def gather_call_row(src, idx):
     esize = src.element_size()
     nbytes = idx.nbytes + rows_read * c * esize + idx.numel() * c * esize
     idx64 = torch.where(ok, idx, 0).long()[..., None].expand(-1, -1, c)
-    return dict(
+
+    def call():
+        return gr.gather_rows(src, idx)
+    row = dict(
         src=list(src.shape), ids=list(idx.shape), dtype=str(src.dtype),
         rows_read=rows_read,
-        ms=cuda_ms(lambda: gr.gather_rows(src, idx), 20),
+        ms=cuda_ms(call, 20),
         plain_ms=cuda_ms(lambda: gr.gather_rows_reference(src, idx), 5),
         library_ms=cuda_ms(lambda: torch.gather(src, 1, idx64), 20),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         bytes=nbytes)
+    DEVICE_TIMED.append(("gather_rows", row, call))
+    return row
+
+
+def grouping_call_row(xyz, features, centers, idx):
+    """One grouping launch of the path (``gather_rows.group_and_decorate``
+    on the tensors the path handed it): its time, its plain version, the
+    model's whole call (``ops.grouping.group_and_decorate``: reshapes, the
+    ``autograd.Function``, the launch) as ``model_ms``, the torch calls it
+    replaces as ``library_ms`` (two ``torch.gather``, the subtraction and
+    the ``cat``; one gather and the subtraction without features), and its
+    bound (the ids, the rows they name, the centres and the output over
+    the memory rate)."""
+    import torch
+    from lisec_tpu_torch.ops import grouping
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    b, n, _ = xyz.shape
+    m, k = idx.shape[1:]
+    c = 0 if features is None else features.shape[2]
+    ok = (idx >= 0) & (idx < n)
+    flat = idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n
+    rows_read = int(torch.unique(flat[ok]).numel())
+    nbytes = (idx.nbytes + rows_read * (3 + c) * 4 + centers.nbytes
+              + idx.numel() * (3 + c) * 4)
+    rows = torch.where(ok, idx, 0).long().view(b, m * k, 1)
+
+    def torch_calls():
+        g = (torch.gather(xyz, 1, rows.expand(-1, -1, 3)).view(b, m, k, 3)
+             - centers[:, :, None])
+        if features is None:
+            return g
+        return torch.cat([g, torch.gather(features, 1, rows.expand(
+            -1, -1, c)).view(b, m, k, c)], dim=-1)
+
+    def call():
+        return gr.group_and_decorate(xyz, features, centers, idx)
+    row = dict(
+        xyz=list(xyz.shape), features=None if features is None
+        else list(features.shape), centers=list(centers.shape),
+        ids=list(idx.shape), rows_read=rows_read,
+        ms=cuda_ms(call, 20),
+        plain_ms=cuda_ms(lambda: gr.group_and_decorate_reference(
+            xyz, features, centers, idx), 5),
+        model_ms=cuda_ms(lambda: grouping.group_and_decorate(
+            xyz, features, centers, idx), 20),
+        library_ms=cuda_ms(torch_calls, 20),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes)
+    DEVICE_TIMED.append(("gather_rows", row, call))
+    return row
 
 
 def scatter_call_row(vals, idx, num_rows):
@@ -1996,24 +2246,33 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
          host_clock_clouds_per_s=b * 1e3 / host_ms,
          **{f"{k}_ms": v for k, v in parts.items()})
 
-    # Record what one batch-16 predict and one train step hand the kernels.
+    # Record what one batch-16 predict and one train step hand the kernels:
+    # the gather kernel's launches in their order, plain gathers and
+    # groupings.
     calls = {"fps": [], "gather_rows": [], "scatter_rows": []}
     gather, scatter = gr.gather_rows, gr.scatter_rows   # before the swap
+    group = gr.group_and_decorate
 
     def rec_fps(points, mask, m):
         calls["fps"].append((points, mask, m))
         return fk.fps(points, mask, m)
 
     def rec_gather(src, idx):
-        calls["gather_rows"].append((src.detach(), idx))
+        calls["gather_rows"].append((gather_call_row, (src.detach(), idx)))
         return gather(src, idx)
+
+    def rec_group(xyz, features, centers, idx):
+        calls["gather_rows"].append((grouping_call_row, (
+            xyz, None if features is None else features.detach(), centers,
+            idx)))
+        return group(xyz, features, centers, idx)
 
     def rec_scatter(vals, idx, *, num_rows):
         calls["scatter_rows"].append((vals, idx, num_rows))
         return scatter(vals, idx, num_rows=num_rows)
 
     dev = serve_pipe.device_batch(partseg_batch(serve_pipe, serve_cfg, 16))
-    with swapped_point_ops(rec_fps, rec_gather, rec_scatter):
+    with swapped_point_ops(rec_fps, rec_gather, rec_scatter, rec_group):
         with torch.no_grad():
             serve_pipe.predict(dev)
         predict_calls = {k: list(v) for k, v in calls.items()}
@@ -2021,39 +2280,60 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
         partseg_loss_and_grads(pipe, train_batch)
     rows = (
         [fps_call_row(*c) for c in predict_calls["fps"]],
-        [gather_call_row(*c) for c in predict_calls["gather_rows"]],
+        [row_fn(*c) for row_fn, c in predict_calls["gather_rows"]],
         [scatter_call_row(*c) for c in calls["scatter_rows"]])
     for kernel, per_call in zip(("fps", "gather_rows", "scatter_rows"), rows):
         for i, call in enumerate(per_call):
             emit("partseg_kernel", kernel=kernel, call=i, **call)
-    if [len(r) for r in rows] != [2, 7, 3]:
+    if [len(r) for r in rows] != [2, 6, 3] or sum(
+            "centers" in r for r in rows[1]) != 2:
         raise AssertionError(f"partseg kernel calls {[len(r) for r in rows]}")
     return rows
 
 
 def phase_device_times():
-    """The kernel's own time on the card (``device_ms``) of every timed
-    ``segment_paint`` and ``scatter_rows`` call, filled into its row."""
+    """The kernels' own time on the card (``device_ms``) of every timed
+    ``segment_paint``, ``scatter_rows``, ``gather_rows`` and
+    ``spread_accumulate`` call, and what it launched (``device_parts``),
+    filled into its row."""
     for kernel, row, call in DEVICE_TIMED:
-        row["device_ms"] = device_ms(call)
+        row["device_ms"], row["device_parts"] = device_parts(call)
+        if kernel == "spread_accumulate":
+            # A given map: the accumulate alone; else the invert and the
+            # accumulate; no memset either way.
+            got = {k.split("<")[0]: p["per_call"]
+                   for k, p in row["device_parts"].items()}
+            want = {"spread_accumulate_kernel": 1}
+            if row["inverse_map"] == "built":
+                want["spread_invert_kernel"] = 1
+            if got != want:
+                raise AssertionError(f"spread call {row['vals']}: launched "
+                                     f"{got}, expected {want}")
         emit("device_time", kernel=kernel,
-             call={k: row[k] for k in ("rows", "vals", "table_rows",
-                                       "num_rows", "num_max", "split")
+             call={k: row[k] for k in ("rows", "vals", "src", "ids",
+                                       "table_rows", "num_rows", "num_out",
+                                       "num_max", "split", "dtype")
                    if k in row},
              ms=row["ms"], device_ms=row["device_ms"],
+             device_parts=row["device_parts"],
              library_ms=row["library_ms"], bound_ms=row["bound_ms"])
 
 
 def phase_profile_listing():
-    """Five ``scatter_rows`` calls (a PointNet++ gradient's shape) and
-    five ``segment_paint`` calls (the encoder statistics' shape) under
-    ``torch.profiler``: the aten ops on the host and the kernels on the
-    card. Each call allocates its output (``aten::new_empty``, which
-    runs ``aten::empty``) and launches its own kernel, and nothing else:
-    no sort, no ``searchsorted``."""
+    """Five calls of each wrapper under ``torch.profiler``: the aten ops
+    on the host and the kernels on the card. Each call allocates its
+    output (``aten::new_empty``, which runs ``aten::empty``; the spread
+    without a map its scratch too) and launches its own kernels, and
+    nothing else: ``scatter_rows`` at a PointNet++ gradient's shape,
+    ``segment_paint`` at the encoder statistics', ``gather_rows`` at a
+    feature gather's, the grouping at SA2's (one launch for two gathers,
+    the subtraction and the concatenation), ``spread_accumulate`` at a
+    level-0 submanifold conv's with its inverse map (one launch) and
+    without (the invert and the accumulate, no memset)."""
     import torch
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     g = torch.Generator(device="cuda").manual_seed(5)
     vals = torch.randn((16, 8192, 128), generator=g, device="cuda")
     idx = torch.randint(0, 512, (16, 8192), generator=g, device="cuda",
@@ -2061,22 +2341,49 @@ def phase_profile_listing():
     rows = torch.randn((4, 32768, 4), generator=g, device="cuda")
     cells = torch.sort(torch.randint(0, NCELLS + 2000, (4, 32768), generator=g,
                                      device="cuda"), 1).values.to(torch.int32)
+    feats = torch.randn((16, 512, 128), generator=g, device="cuda")
+    xyz = torch.rand((16, 512, 3), generator=g, device="cuda")
+    centers = xyz[:, :128].contiguous()
+    ids6144 = idx[:, :6144].contiguous()
+    nbr = torch.randint(0, 512, (16, 128, 64), generator=g, device="cuda",
+                        dtype=torch.int32)
+    b, k, n, c = 8, 27, 16000, 16
+    stream = torch.randn((b, k, n, c), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    perm = torch.argsort(torch.rand((b, k, n), generator=g, device="cuda"))
+    targets = torch.where(perm < n // 7, perm, -1).to(torch.int32)
+    sources = inverse_map(targets, n)
     calls = {
         "scatter_rows": (lambda: gr.scatter_rows(vals, idx, num_rows=512),
-                         "scatter_kernel"),
+                         {"scatter_kernel": 1}),
         "segment_paint": (lambda: sp.segment_paint(
-            rows, cells, num_cells=NCELLS, num_max=0), "segment_paint_kernel")}
-    for name, (call, kernel) in calls.items():
+            rows, cells, num_cells=NCELLS, num_max=0),
+            {"segment_paint_kernel": 1}),
+        "gather_rows": (lambda: gr.gather_rows(feats, ids6144),
+                        {"gather_kernel": 1}),
+        "group_and_decorate": (lambda: gr.group_and_decorate(
+            xyz, feats, centers, nbr), {"group_kernel": 1}),
+        "spread_accumulate_given_map": (lambda: sa.spread_accumulate(
+            stream, targets, num_out=n, sources=sources),
+            {"spread_accumulate_kernel": 1}),
+        "spread_accumulate_built_map": (lambda: sa.spread_accumulate(
+            stream, targets, num_out=n),
+            {"spread_invert_kernel": 1, "spread_accumulate_kernel": 1})}
+    for name, (call, want) in calls.items():
         ops, kernels = profiled(call, 5)
-        names = sorted({k for k, _ in kernels})
+        labels = [kernel_label(k) for k, _ in kernels]
+        per_call = {w: sum(w in lb for lb in labels) / 5 for w in want}
         emit("profile", kernel=name, calls=5, host_aten_ops=sorted(set(ops)),
-             aten_ops_per_call=len(ops) / 5, cuda_kernels=names,
-             launches_caught=len(kernels))
-        # The output's allocation: new_empty, which dispatches to empty.
-        if set(ops) - {"aten::new_empty", "aten::empty"} or not kernels \
-                or any(kernel not in k for k in names):
+             aten_ops_per_call=len(ops) / 5,
+             cuda_kernels=sorted(set(labels)),
+             launches_caught=len(kernels),
+             launches_per_call=per_call)
+        # A trace may miss the first launch or two.
+        if (set(ops) - {"aten::new_empty", "aten::empty"}
+                or any(not any(w in lb for w in want) for lb in labels)
+                or any(abs(per_call[w] - want[w]) > 0.4 for w in want)):
             raise AssertionError(f"{name}: 5 calls ran {sorted(set(ops))} "
-                                 f"and launched {names}")
+                                 f"and launched {sorted(set(labels))}")
 
 
 def main() -> int:

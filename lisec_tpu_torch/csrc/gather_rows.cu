@@ -10,14 +10,37 @@
 //   out[b, m, :] = src[b, idx[b, m], :]   if 0 <= idx[b, m] < N
 //                  0                      otherwise
 //
-// One owner thread per output element, or per 16 bytes of a row (4 f32 or
-// 8 bf16 channels) where C and the pointers allow it; it copies bits, so it
-// is exact in both types. Every output element is written once, the zero
-// rows of out-of-range ids included. Bound by bytes: the ids, the rows they
-// name and the output (the seven gathers of a PointNet++ predict at batch 16
-// move 161 MB, 0.048 ms at 3.35 TB/s); the 16-byte owner threads make the
-// reads and writes of a row coalesced.
+// It copies bits, so it is exact in both types, and writes every output
+// element once, the zero rows of out-of-range ids included. Bound by
+// bytes: the ids, the rows they name and the output (the feature gathers
+// of a PointNet++ predict at batch 16 hold almost all of it). A row is a
+// run of units V (16 bytes where the row's length and the pointers allow,
+// else 8, 4 or 2) and is moved by a group of L lanes, L a power of two up
+// to 32: lane j moves units j, j + L, ... Rows of at most four units (C =
+// 3 in f32: one 12-byte row) are moved whole by one thread (L = 1). The
+// group's first lane loads the row's id once, finds the source row (the
+// cloud from a 32-bit division) and hands it to the other lanes by a
+// shuffle. A lane group keeps two rows in flight, a thread that moves a
+// narrow row all its units (every load issued before the stores).
+// Offsets are 32-bit: the wrapper refuses a src or an output of 2^31
+// elements or more.
 //
+// Grouping (PointNet++'s group_and_decorate), xyz (B, N, 3) f32, features
+// (B, N, C) f32 or none, centres (B, M, 3) f32, idx (B, M * K) int32:
+//
+//   out[b, r, 0:3] = xyz[b, idx[b, r]] - centres[b, r / K]    (f32)
+//   out[b, r, 3:]  = features[b, idx[b, r]]                   (a copy)
+//
+// in one launch, straight into the (B, M * K, 3 + C) output that the
+// shared MLP reads, with out-of-range ids taken as zero rows, as the
+// gather does. Without features one thread moves a row (its three
+// coordinates and its centre's); with them a group of L lanes (4 to 32)
+// moves the feature channels and its first three lanes the coordinates.
+// The output rows (3 + C floats) are 4-byte aligned only, so every unit
+// is one float; a warp's stores are contiguous all the same. It replaces
+// two gathers, a subtraction and a concatenation, which read and wrote
+// the grouped tensor again (69 MB each way in SA2 at batch 16).
+
 // Scatter, vals (B, M, C) f32, idx (B, M) int32:
 //
 //   out[b, r, :] = sum of vals[b, m, :] over m with idx[b, m] = r, in m order
@@ -60,27 +83,145 @@ constexpr int kMaxSlots = 4;                  // target rows per owner thread
 constexpr int kBatch = 8;                     // row loads in flight
 constexpr unsigned kFull = 0xffffffffu;
 
-// T: the element (float, or the bits of a bf16); V: what one thread moves
-// (T itself, or a 16-byte vector of T).
-template <typename T, typename V>
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(const T* __restrict__ src,   // (B, N, C)
-              const int* __restrict__ idx,  // (B, M)
-              T* __restrict__ out,          // (B, M, C)
-              int n, int m, int c, unsigned long long total) {
-  constexpr int kVec = sizeof(V) / sizeof(T);
-  const unsigned long long t =
-      (unsigned long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;                   // total = B * M * C / kVec
-  const unsigned cv = (unsigned)(c / kVec);
-  const int ch = (int)(t % cv) * kVec;
-  const unsigned long long row = t / cv;    // b * M + j
-  const int b = (int)(row / (unsigned)m);
-  const int id = idx[row];
-  V v{};
-  if (id >= 0 && id < n)
-    v = *reinterpret_cast<const V*>(src + ((size_t)b * n + id) * c + ch);
-  *reinterpret_cast<V*>(out + row * (unsigned)c + ch) = v;
+constexpr int kGatherThreads = 256;
+
+// The source row of output row `row` (b * n + id, or -1 for an id
+// outside [0, n)), loaded by the group's first lane and shared with the
+// group's L lanes; every lane of the warp takes part.
+__device__ __forceinline__ int source_row(const int* __restrict__ idx,
+                                          int row, int rows, int n, int m,
+                                          int j, int lanes) {
+  int s = -1;
+  if (j == 0 && row < rows) {
+    const int id = __ldg(idx + row);
+    if (id >= 0 && id < n) s = row / m * n + id;
+  }
+  return lanes > 1 ? __shfl_sync(kFull, s, 0, lanes) : s;
+}
+
+// V: the unit a lane moves (16, 8, 4 or 2 bytes). A block holds
+// kGatherThreads >> lshift groups of 1 << lshift lanes and moves a tile
+// of kRows * groups rows: group g moves rows tile * kRows * groups + r *
+// groups + g, r < kRows, kUnits units of each row at a time.
+template <typename V, int kRows, int kUnits>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_kernel(const V* __restrict__ src,   // (B, N, units)
+              const int* __restrict__ idx,  // (B * M)
+              V* __restrict__ out,          // (B * M, units)
+              int n, int m, int rows, int units, int lshift) {
+  const int lanes = 1 << lshift;
+  const int groups = kGatherThreads >> lshift;
+  const int j = threadIdx.x & (lanes - 1);
+  const int first = blockIdx.x * kRows * groups + (threadIdx.x >> lshift);
+  int from[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    from[r] = source_row(idx, first + r * groups, rows, n, m, j, lanes);
+  for (int u0 = j; u0 < units; u0 += kUnits * lanes) {
+    V v[kRows][kUnits];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        const int unit = u0 + u * lanes;
+        v[r][u] = from[r] >= 0 && unit < units
+                      ? __ldg(src + from[r] * units + unit)
+                      : V{};
+      }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = first + r * groups;
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        const int unit = u0 + u * lanes;
+        if (row < rows && unit < units) out[row * units + unit] = v[r][u];
+      }
+    }
+  }
+}
+
+// Grouping, in the same tiles. Without features (kFeatures false)
+// lshift is 0 and a thread moves whole rows; with them the group's lanes
+// move kUnits channels of each of kRows rows at a time, lanes 0-2 also
+// the coordinates. A tile's loads (ids first, then coordinates, centres
+// and the first channels) are all issued before its stores.
+template <bool kFeatures, int kRows, int kUnits>
+__global__ void __launch_bounds__(kGatherThreads)
+group_kernel(const float* __restrict__ xyz,      // (B, N, 3)
+             const float* __restrict__ feat,     // (B, N, C) or null
+             const float* __restrict__ centres,  // (B, M, 3)
+             const int* __restrict__ idx,        // (B * MK)
+             float* __restrict__ out,            // (B * MK, 3 + C)
+             int n, int mk, int k, int c, int rows, int lshift) {
+  constexpr int kAxes = kFeatures ? 1 : 3;  // coordinates a lane moves
+  const int lanes = 1 << lshift;
+  const int groups = kGatherThreads >> lshift;
+  const int j = threadIdx.x & (lanes - 1);
+  const int w = 3 + c;
+  const bool coords = !kFeatures || j < 3;
+  const int step = kUnits * lanes;            // channels a pass
+  const int passes = kFeatures ? (c + step - 1) / step : 0;
+  const int first = blockIdx.x * kRows * groups + (threadIdx.x >> lshift);
+  int from[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    from[r] = source_row(idx, first + r * groups, rows, n, mk, j, lanes);
+
+  auto load_channels = [&](int u0, float (&v)[kRows][kUnits]) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        const int ch = u0 + u * lanes;
+        v[r][u] = from[r] >= 0 && ch < c ? __ldg(feat + from[r] * c + ch)
+                                         : 0.0f;
+      }
+  };
+  auto store_channels = [&](int u0, const float (&v)[kRows][kUnits]) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = first + r * groups;
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        const int ch = u0 + u * lanes;
+        if (row < rows && ch < c) out[row * w + 3 + ch] = v[r][u];
+      }
+    }
+  };
+
+  float p[kRows][kAxes], q[kRows][kAxes], v[kRows][kUnits];
+  if (coords) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      // The centre's row: b * M + (the row within its cloud) / K.
+      const int row = first + r * groups;
+      const int b = row / mk;
+      const int centre = b * (mk / k) + (row - b * mk) / k;
+#pragma unroll
+      for (int a = 0; a < kAxes; ++a) {
+        const int axis = kFeatures ? j : a;
+        p[r][a] = from[r] >= 0 ? __ldg(xyz + from[r] * 3 + axis) : 0.0f;
+        q[r][a] = row < rows ? __ldg(centres + centre * 3 + axis) : 0.0f;
+      }
+    }
+  }
+  if (kFeatures && passes > 0) load_channels(j, v);
+  if (coords) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = first + r * groups;
+#pragma unroll
+      for (int a = 0; a < kAxes; ++a)
+        if (row < rows)
+          out[row * w + (kFeatures ? j : a)] = __fsub_rn(p[r][a], q[r][a]);
+    }
+  }
+  if (!kFeatures || passes == 0) return;
+  store_channels(j, v);
+  for (int pass = 1; pass < passes; ++pass) {
+    load_channels(j + pass * step, v);
+    store_channels(j + pass * step, v);
+  }
 }
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
@@ -262,16 +403,35 @@ int multiprocessors() {
   return sms;
 }
 
-template <typename T, typename V>
+// Lanes a row takes: 1 for a row of at most four units, else the power
+// of two at or above its units, at most 32 (as log2).
+int lane_shift(int units) {
+  if (units <= 4) return 0;
+  int shift = 0;
+  while (shift < 5 && (1 << shift) < units) ++shift;
+  return shift;
+}
+
+template <typename V>
 int launch_gather(const void* src, const void* idx, void* out, int b, int n,
-                  int m, int c, cudaStream_t s) {
-  const unsigned long long total =
-      (unsigned long long)b * m * c / (sizeof(V) / sizeof(T));
-  const unsigned long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 2147483647ull) return (int)cudaErrorInvalidValue;
-  gather_kernel<T, V><<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(src), static_cast<const int*>(idx),
-      static_cast<T*>(out), n, m, c, total);
+                  int m, int row_bytes, cudaStream_t s) {
+  const int units = row_bytes / (int)sizeof(V);
+  const int shift = lane_shift(units);
+  const int rows = b * m;
+  // One row a thread for narrow rows, two rows a lane group for wide
+  // (measured against one persistent grid and four rows: the more
+  // threads, the better on the path's shapes).
+  const int per_tile = shift == 0 ? kGatherThreads
+                                  : (kGatherThreads >> shift) * 2;
+  const int tiles = (rows + per_tile - 1) / per_tile;
+  if (shift == 0)
+    gather_kernel<V, 1, 4><<<tiles, kGatherThreads, 0, s>>>(
+        static_cast<const V*>(src), static_cast<const int*>(idx),
+        static_cast<V*>(out), n, m, rows, units, 0);
+  else
+    gather_kernel<V, 2, 1><<<tiles, kGatherThreads, 0, s>>>(
+        static_cast<const V*>(src), static_cast<const int*>(idx),
+        static_cast<V*>(out), n, m, rows, units, shift);
   return (int)cudaGetLastError();
 }
 
@@ -310,30 +470,76 @@ int launch_scatter(const void* vals, const void* idx, void* out, int b, int m,
 // Plain C entry points (loaded with ctypes). Each returns the cudaError_t
 // of its launch; 0 means it was accepted.
 
-// elem_bytes: 4 for f32, 2 for bf16 (copied as 16-bit words).
+// Every argument is one 64-bit word (the sizes as long long), which is
+// what ctypes passes quickest. elem_bytes: 4 for f32, 2 for bf16 (copied
+// as 16-bit words). The caller keeps b * n * c and b * m * c below 2^31.
 extern "C" int lisec_gather_rows(const void* src, const void* idx, void* out,
-                                 int b, int n, int m, int c, int elem_bytes,
+                                 long long b, long long n, long long m,
+                                 long long c, long long elem_bytes,
                                  void* stream) {
-  if (b < 1 || n < 1 || m < 1 || c < 1) return (int)cudaErrorInvalidValue;
+  if (b < 1 || n < 1 || m < 1 || c < 1 || (elem_bytes != 4 &&
+                                             elem_bytes != 2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = (c * elem_bytes) % 16 == 0 && aligned16(src) &&
-                   aligned16(out);
-  if (elem_bytes == 4)
-    return vec ? launch_gather<float, float4>(src, idx, out, b, n, m, c, s)
-               : launch_gather<float, float>(src, idx, out, b, n, m, c, s);
-  if (elem_bytes == 2)
-    return vec ? launch_gather<uint16_t, uint4>(src, idx, out, b, n, m, c, s)
-               : launch_gather<uint16_t, uint16_t>(src, idx, out, b, n, m, c,
-                                                   s);
-  return (int)cudaErrorInvalidValue;
+  const int row_bytes = (int)(c * elem_bytes);
+  const int B = (int)b, N = (int)n, M = (int)m;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src) |
+                       reinterpret_cast<uintptr_t>(out) | row_bytes;
+  if (at % 16 == 0)
+    return launch_gather<uint4>(src, idx, out, B, N, M, row_bytes, s);
+  if (at % 8 == 0)
+    return launch_gather<uint2>(src, idx, out, B, N, M, row_bytes, s);
+  if (at % 4 == 0)
+    return launch_gather<uint32_t>(src, idx, out, B, N, M, row_bytes, s);
+  return launch_gather<uint16_t>(src, idx, out, B, N, M, row_bytes, s);
+}
+
+// features may be null (c = 0). The caller keeps b * n * c and
+// b * mk * (3 + c) below 2^31, and mk a multiple of k.
+extern "C" int lisec_group_rows(const void* xyz, const void* features,
+                                const void* centres, const void* idx,
+                                void* out, long long b, long long n,
+                                long long mk, long long k, long long c,
+                                void* stream) {
+  if (b < 1 || n < 1 || mk < 1 || k < 1 || mk % k != 0 || c < 0 ||
+      (c > 0) != (features != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = (int)(b * mk);
+  const float* x = static_cast<const float*>(xyz);
+  const float* f = static_cast<const float*>(features);
+  const float* ctr = static_cast<const float*>(centres);
+  const int* ids = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  const int N = (int)n, MK = (int)mk, K = (int)k, C = (int)c;
+  constexpr int kRows = 2;
+  if (C == 0) {
+    const int tiles = (rows + kRows * kGatherThreads - 1) /
+                      (kRows * kGatherThreads);
+    group_kernel<false, kRows, 1><<<tiles, kGatherThreads, 0, s>>>(
+        x, f, ctr, ids, o, N, MK, K, 0, rows, 0);
+  } else {
+    // Lanes a row: the power of two at or above C, from 4 (the three
+    // coordinates' lanes) to 32.
+    int shift = 2;
+    while (shift < 5 && (1 << shift) < C) ++shift;
+    const int per_tile = (kGatherThreads >> shift) * kRows;
+    const int tiles = (rows + per_tile - 1) / per_tile;
+    group_kernel<true, kRows, 4><<<tiles, kGatherThreads, 0, s>>>(
+        x, f, ctr, ids, o, N, MK, K, C, rows, shift);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int lisec_scatter_rows(const void* vals, const void* idx,
-                                  void* out, int b, int m, int r, int c,
-                                  void* stream) {
-  if (b < 1 || m < 1 || r < 1 || c < 1) return (int)cudaErrorInvalidValue;
+                                  void* out, long long b, long long m,
+                                  long long r, long long c, void* stream) {
+  if (b < 1 || m < 1 || r < 1 || c < 1 || b > 2147483647ll ||
+      m > 2147483647ll || r > 2147483647ll || c > 2147483647ll)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c % 4 == 0 && aligned16(vals) && aligned16(out))
-    return launch_scatter<float4>(vals, idx, out, b, m, r, c, s);
-  return launch_scatter<float>(vals, idx, out, b, m, r, c, s);
+  const int B = (int)b, M = (int)m, R = (int)r, C = (int)c;
+  if (C % 4 == 0 && aligned16(vals) && aligned16(out))
+    return launch_scatter<float4>(vals, idx, out, B, M, R, C, s);
+  return launch_scatter<float>(vals, idx, out, B, M, R, C, s);
 }

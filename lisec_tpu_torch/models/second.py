@@ -18,7 +18,7 @@ are f32 and cast to the compute dtype per layer, as flax does.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +31,7 @@ from lisec_tpu_torch.models.pointpillars import (
 from lisec_tpu_torch.ops.scatter import segment_sum_dense
 from lisec_tpu_torch.ops.sparse_conv import (
     SparseConvSpec, build_footprint_coords, build_output_coords,
-    build_scatter_rulebook, sparse_conv3d_spread)
+    build_scatter_rulebook, sparse_conv3d_spread, submanifold_sources)
 
 
 NUM_OFFSETS = 27            # every sparse conv here has 3 x 3 x 3 taps
@@ -68,12 +68,15 @@ class SparseConv3D(nn.Module):
         return (2.0 / (k * cin)) ** 0.5
 
     def forward(self, feats: torch.Tensor, out_of: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor,
+                sources: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feats (B, V_in, Cin), out_of (B, K, V_in) scatter rulebook,
-        valid (B, V_out) -> (B, V_out, Cout) in the compute dtype."""
+        valid (B, V_out), sources the rulebook's inverse where the caller
+        holds it (B, K, V_out) -> (B, V_out, Cout) in the compute
+        dtype."""
         y = sparse_conv3d_spread(
             feats.to(self.dtype), out_of, self.weight.to(self.dtype),
-            v_out=valid.shape[1])
+            v_out=valid.shape[1], sources=sources)
         # The f32 sum returns to the compute dtype before BatchNorm.
         y = batch_norm(y.to(self.dtype).float(), self, -1).to(self.dtype)
         return torch.where(valid[..., None], torch.relu(y), 0.0)
@@ -225,8 +228,10 @@ class SparseMiddleEncoder(nn.Module):
             spec = SparseConvSpec((3, 3, 3), (1, 1, 1), (1, 1, 1), grid)
             srb = build_scatter_rulebook(cur_coords, cur_num, cur_coords,
                                          cur_num, spec)
+            # Its inverse, for the spread, once for the level's layers.
+            sources = submanifold_sources(srb)
             for _ in range(self.subm_per_level):
-                x = next(layers)(x, srb, cur_valid)
+                x = next(layers)(x, srb, cur_valid, sources)
             if level < n_levels - 1:
                 # Strided downsample to the next level's active set
                 # (sparse even when the next level is dense).

@@ -72,14 +72,17 @@ def build(name: str) -> Dict[str, object]:
     return {"seconds": seconds, "log": log}
 
 
+# ``torch._C._cuda_getCurrentRawStream`` gives the raw handle without the
+# Python ``Stream`` object that ``torch.cuda.current_stream`` builds, a
+# few microseconds a call; the public call stands in where it is missing.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t) -> int:
     """The raw handle of the current CUDA stream on ``t``'s card, for a
-    launch. ``torch._C._cuda_getCurrentRawStream`` skips the Python
-    ``Stream`` object that ``torch.cuda.current_stream`` builds, a few
-    microseconds a call; the public call stands in where it is missing."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(t.get_device())
+    launch."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -89,3 +92,13 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
+
+
+def bind(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+    """The entry point ``entry`` of ``csrc/<name>.cu`` (built and loaded
+    on first use) with its argument types set, returning the C ``int``
+    error code. A wrapper binds it once and keeps it."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -166,14 +166,7 @@ def pillar_canvas_fused_reference(
     return canvas.to(out_dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("encoder_kernel")
-    fn = lib.lisec_pillar_canvas_fused
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+_canvas_fn = None
 
 
 def launch_canvas_kernel(pts_s: torch.Tensor, offsets: torch.Tensor,
@@ -183,15 +176,20 @@ def launch_canvas_kernel(pts_s: torch.Tensor, offsets: torch.Tensor,
                          pc_range: Sequence[float]) -> None:
     """Launch the CUDA kernel alone on the glue's outputs (the wrapper's
     inner step; benchmarks time it on its own)."""
-    global LAUNCHES
+    global LAUNCHES, _canvas_fn
     b, n, _ = pts_s.shape
     ncells = out.shape[1]
     c = w.shape[1]
-    err = _library().lisec_pillar_canvas_fused(
+    if _canvas_fn is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _canvas_fn = build.bind(
+            "encoder_kernel", "lisec_pillar_canvas_fused",
+            [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, p])
+    err = _canvas_fn(
         pts_s.data_ptr(), offsets.data_ptr(), w.data_ptr(), t.data_ptr(),
         out.data_ptr(), b, n, ncells, c, nx, voxel_size[0], voxel_size[1],
         pc_range[0], pc_range[1], int(out.dtype == torch.bfloat16),
-        torch.cuda.current_stream(pts_s.device).cuda_stream)
+        build.stream_of(pts_s))
     if err != 0:
         raise RuntimeError(
             f"pillar_canvas_fused kernel launch failed: cudaError {err}")
@@ -245,8 +243,8 @@ def pillar_canvas_fused(
         raise ValueError(f"unsupported device {points.device}")
     nx, ny = grid
     _, pts_s, offsets = sort_by_cell(points, point_mask, **kw)
-    out = torch.empty((points.shape[0], nx * ny, w.shape[1]),
-                      dtype=out_dtype, device=points.device)
+    out = points.new_empty((points.shape[0], nx * ny, w.shape[1]),
+                           dtype=out_dtype)
     launch_canvas_kernel(pts_s, offsets, w, t, out, nx=nx,
                          voxel_size=voxel_size, pc_range=pc_range)
     return out

@@ -83,14 +83,7 @@ def fps_reference(points: torch.Tensor, mask: torch.Tensor,
     return out
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("fps")
-    fn = lib.lisec_fps
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+_fps_fn = None
 
 
 def _check(points, mask, num_samples):
@@ -120,18 +113,19 @@ def fps(points: torch.Tensor, mask: torch.Tensor,
     """(B, M) int32 farthest-point picks of points (B, N, 3) f32 under a
     (B, N) bool mask. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel."""
-    global LAUNCHES
+    global LAUNCHES, _fps_fn
     _check(points, mask, num_samples)
     if points.device.type == "cpu":
         return fps_reference(points, mask, num_samples)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     b, n, _ = points.shape
-    out = torch.empty((b, num_samples), dtype=torch.int32,
-                      device=points.device)
-    err = _library().lisec_fps(
-        points.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n,
-        num_samples, torch.cuda.current_stream(points.device).cuda_stream)
+    if _fps_fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _fps_fn = build.bind("fps", "lisec_fps", [p, p, p, i, i, i, p])
+    out = points.new_empty((b, num_samples), dtype=torch.int32)
+    err = _fps_fn(points.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n,
+                  num_samples, build.stream_of(points))
     if err != 0:
         raise RuntimeError(f"fps kernel launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -17,9 +17,15 @@ their tile and split an f32 table into two bf16 terms (2^-17 relative);
 none of that is carried over. Here the gather copies bits and is exact
 in both types, and the scatter adds in f32 in m order.
 
-Design (``csrc/gather_rows.cu``). Gather: one owner thread per output
-element, or per 16 bytes of a row (4 f32 or 8 bf16 channels) where C
-allows, any C (3 for xyz) and any M. Scatter: one launch and no glue (no
+Design (``csrc/gather_rows.cu``). Gather: a row is moved by a group of
+lanes (one thread for a row of at most four units, such as xyz's 12
+bytes; else up to 32 lanes, 16 bytes a lane where C allows); the group's
+first lane loads the id once and shares the source row by a shuffle;
+a lane group keeps two rows in flight; offsets are 32-bit. Grouping
+(``group_and_decorate``): the same gather of xyz and, optionally,
+features with the same ids, the centre subtracted from the coordinates,
+written in one launch straight into the (B, M, K, 3 + C) tensor the
+shared MLP reads. Scatter: one launch and no glue (no
 sort or ``searchsorted`` in torch). A block owns a tile of target rows of
 one cloud (up to 32 channel groups of them); it streams the cloud's ids
 through shared memory in chunks of 2048, in m order, and sorts the
@@ -36,27 +42,33 @@ from run to run. A target's rows form one chain of dependent adds; the
 call with the most rows on one target (326) is the slowest of a train
 step's three.
 
-Bounds on the card, both by bytes: the gather reads the ids and the rows
-they name and writes the output; the scatter reads the ids and the
+Bounds on the card, all by bytes: the gather reads the ids and the rows
+they name and writes the output; the grouping reads those and the
+centres; the scatter reads the ids and the
 values of the rows that land and writes the table (each tile re-reads
 its cloud's ids, from L2, which the bound does not count: it is a
 property of the design, not of the work).
 
 On CPU tensors the wrappers compute their plain versions
-(``gather_rows_reference``, ``scatter_rows_reference``); on CUDA tensors
-they launch the kernels or raise.
+(``gather_rows_reference``, ``group_and_decorate_reference``,
+``scatter_rows_reference``); on CUDA tensors they launch the kernels or
+raise. The wrappers' host work is what ``torch.gather`` pays: the
+``ctypes`` functions are bound once, the checks are one expression (the
+reason is worked out only for a refusal), the output comes from
+``new_empty`` and the stream from ``build.stream_of``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from lisec_tpu_torch.ops.cuda import build
 
-# Launches of each CUDA kernel since import.
+# Launches of each CUDA kernel since import; the grouping's launches count
+# as the gather's (one source, one kernel family).
 GATHER_LAUNCHES = 0
 SCATTER_LAUNCHES = 0
 
@@ -74,6 +86,10 @@ SCATTER_INFO = {
 }
 
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+# The kernels' offsets are 32-bit: every tensor they index stays below.
+_MAX_ELEMS = 2 ** 31
+_INT32 = torch.int32
+_F32 = (torch.float32,)
 
 
 def gather_rows_reference(src: torch.Tensor, idx: torch.Tensor
@@ -86,6 +102,24 @@ def gather_rows_reference(src: torch.Tensor, idx: torch.Tensor
     out = torch.gather(src, 1, rows[..., None].expand(-1, -1, c))
     return torch.where(ok[..., None], out, torch.zeros((), dtype=src.dtype,
                                                        device=src.device))
+
+
+def group_and_decorate_reference(xyz: torch.Tensor,
+                                 features: Optional[torch.Tensor],
+                                 centers: torch.Tensor, idx: torch.Tensor
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of the grouping kernel: the gathers of xyz
+    and features with the same ids, the centre subtracted from the
+    coordinates, the two concatenated. xyz (B, N, 3), features (B, N, C)
+    or None, centers (B, M, 3), idx (B, M, K) -> (B, M, K, 3 + C)."""
+    b, m, k = idx.shape
+    flat = idx.reshape(b, m * k)
+    grouped = (gather_rows_reference(xyz, flat).view(b, m, k, 3)
+               - centers[:, :, None])
+    if features is None:
+        return grouped
+    return torch.cat([grouped, gather_rows_reference(features, flat).view(
+        b, m, k, features.shape[2])], dim=-1)
 
 
 def sort_rows(idx: torch.Tensor, num_rows: int
@@ -125,18 +159,21 @@ def scatter_rows_reference(vals: torch.Tensor, idx: torch.Tensor, *,
     return out.view(b, num_rows, c)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("gather_rows")
-    if lib.lisec_gather_rows.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lisec_gather_rows.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.lisec_gather_rows.restype = ctypes.c_int
-        lib.lisec_scatter_rows.argtypes = [p, p, p, i, i, i, i, p]
-        lib.lisec_scatter_rows.restype = ctypes.c_int
-    return lib
+_gather_fn = _group_fn = _scatter_fn = None
 
 
-def _check(table, idx, what, dtypes):
+def _bind() -> None:
+    """Bind the library's three entry points once (every argument one
+    64-bit word)."""
+    global _gather_fn, _group_fn, _scatter_fn
+    words = [ctypes.c_void_p]
+    _gather_fn = build.bind("gather_rows", "lisec_gather_rows", words * 9)
+    _group_fn = build.bind("gather_rows", "lisec_group_rows", words * 11)
+    _scatter_fn = build.bind("gather_rows", "lisec_scatter_rows", words * 8)
+
+
+def _refuse(table, idx, what, dtypes):
+    """Raise the ValueError that says why ``_check`` refused."""
     if table.dtype not in dtypes or table.dim() != 3:
         raise ValueError(f"{what} must be (B, rows, C) in {dtypes}, got "
                          f"{tuple(table.shape)} {table.dtype}")
@@ -144,15 +181,24 @@ def _check(table, idx, what, dtypes):
     if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != b:
         raise ValueError(f"idx must be ({b}, M) int32, got "
                          f"{tuple(idx.shape)} {idx.dtype}")
-    if idx.get_device() != table.get_device() or idx.is_cuda != table.is_cuda:
+    if idx.get_device() != table.get_device():
         raise ValueError(f"idx is on {idx.device}, {what} on {table.device}")
     if min(b, rows, c, idx.shape[1]) < 1:
         raise ValueError(f"need every size >= 1, got {tuple(table.shape)} "
                          f"and {tuple(idx.shape)}")
-    if not (table.is_contiguous() and idx.is_contiguous()):
-        raise ValueError(f"{what} and idx must be contiguous")
-    if not (table.is_cuda or table.is_cpu):
-        raise ValueError(f"unsupported device {table.device}")
+    raise ValueError(f"{what} and idx must be contiguous")
+
+
+def _check(table, idx, what, dtypes):
+    """Refuse what the kernels cannot take; returns (table's shape, M)."""
+    shape, ishape = table.shape, idx.shape
+    if not (len(shape) == 3 and len(ishape) == 2 and shape[0] == ishape[0]
+            and table.dtype in dtypes and idx.dtype == _INT32
+            and table.numel() and idx.numel() and table.is_contiguous()
+            and idx.is_contiguous()
+            and idx.get_device() == table.get_device()):
+        _refuse(table, idx, what, dtypes)
+    return shape, ishape[1]
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -160,19 +206,99 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ids outside ``[0, N)``. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel."""
     global GATHER_LAUNCHES
-    _check(src, idx, "src", tuple(_ELEM_BYTES))
+    (b, n, c), m = _check(src, idx, "src", _ELEM_BYTES)
     if not src.is_cuda:
         return gather_rows_reference(src, idx)
-    b, n, c = src.shape
-    m = idx.shape[1]
-    if b * m * c >= 2 ** 31 * 256:
-        raise ValueError("the kernel's grid cannot cover this output")
-    out = torch.empty((b, m, c), dtype=src.dtype, device=src.device)
-    err = _library().lisec_gather_rows(
-        src.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, c,
-        _ELEM_BYTES[src.dtype], build.stream_of(src))
+    if b * n * c >= _MAX_ELEMS or b * m * c >= _MAX_ELEMS:
+        raise ValueError("the kernel's 32-bit offsets cannot cover this "
+                         "gather")
+    if _gather_fn is None:
+        _bind()
+    out = src.new_empty(b, m, c)
+    err = _gather_fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n,
+                     m, c, _ELEM_BYTES[src.dtype], build.stream_of(src))
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: "
+                           f"cudaError {err}")
+    GATHER_LAUNCHES += 1
+    return out
+
+
+def _refuse_group(xyz, features, centers, idx):
+    """Raise the ValueError that says why ``_check_group`` refused."""
+    b, n = xyz.shape[:2] if xyz.dim() == 3 else (-1, -1)
+    parts = [("xyz", xyz, (b, None, 3)), ("centers", centers, (b, None, 3))]
+    if features is not None:
+        parts.append(("features", features, (b, n, None)))
+    for name, t, shape in parts:
+        if (t.dtype != torch.float32 or t.dim() != 3 or any(
+                want is not None and got != want
+                for got, want in zip(t.shape, shape))):
+            raise ValueError(f"{name} must be float32 of shape {shape} "
+                             f"(None: any), got {tuple(t.shape)} {t.dtype}")
+    m = centers.shape[1]
+    if (idx.dtype != torch.int32 or idx.dim() != 3
+            or idx.shape[:2] != (b, m)):
+        raise ValueError(f"idx must be ({b}, {m}, K) int32, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    for name, t, _ in parts + [("idx", idx, None)]:
+        if t.get_device() != xyz.get_device():
+            raise ValueError(f"{name} is on {t.device}, xyz on "
+                             f"{xyz.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    shapes = [tuple(t.shape) for t in (xyz, features, idx) if t is not None]
+    raise ValueError(f"need every size >= 1, got {shapes}")
+
+
+def _check_group(xyz, features, centers, idx):
+    """Refuse what the grouping kernel cannot take; returns (B, N, M, K,
+    C)."""
+    xs, cs, ins = xyz.shape, centers.shape, idx.shape
+    dev = xyz.get_device()
+    c = 0
+    if features is not None:
+        fs = features.shape
+        if not (len(fs) == 3 and fs[:2] == xs[:2] and fs[2]
+                and features.dtype == _F32[0] and features.is_contiguous()
+                and features.get_device() == dev):
+            _refuse_group(xyz, features, centers, idx)
+        c = fs[2]
+    if not (len(xs) == 3 and len(cs) == 3 and len(ins) == 3
+            and xs[2] == 3 and cs[2] == 3 and cs[0] == xs[0]
+            and ins[:2] == cs[:2] and xs[1] and ins[0] and ins[1] and ins[2]
+            and xyz.dtype == _F32[0] and centers.dtype == _F32[0]
+            and idx.dtype == _INT32 and xyz.is_contiguous()
+            and centers.is_contiguous() and idx.is_contiguous()
+            and centers.get_device() == dev and idx.get_device() == dev):
+        _refuse_group(xyz, features, centers, idx)
+    return xs[0], xs[1], ins[1], ins[2], c
+
+
+def group_and_decorate(xyz: torch.Tensor, features: Optional[torch.Tensor],
+                       centers: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+    """(B, M, K, 3 + C) f32: ``xyz[b, idx[b, m, k]] - centers[b, m]``,
+    then ``features[b, idx[b, m, k]]`` (none when features is None);
+    ids outside ``[0, N)`` read zero rows. xyz (B, N, 3), features
+    (B, N, C), centers (B, M, 3), all f32; idx (B, M, K) int32. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    global GATHER_LAUNCHES
+    b, n, m, k, c = _check_group(xyz, features, centers, idx)
+    if not xyz.is_cuda:
+        return group_and_decorate_reference(xyz, features, centers, idx)
+    if b * n * max(c, 3) >= _MAX_ELEMS or b * m * k * (3 + c) >= _MAX_ELEMS:
+        raise ValueError("the kernel's 32-bit offsets cannot cover this "
+                         "grouping")
+    if _group_fn is None:
+        _bind()
+    out = xyz.new_empty(b, m, k, 3 + c)
+    err = _group_fn(xyz.data_ptr(), None if features is None
+                    else features.data_ptr(), centers.data_ptr(),
+                    idx.data_ptr(), out.data_ptr(), b, n, m * k, k, c,
+                    build.stream_of(xyz))
+    if err != 0:
+        raise RuntimeError(f"group_and_decorate kernel launch failed: "
                            f"cudaError {err}")
     GATHER_LAUNCHES += 1
     return out
@@ -184,21 +310,21 @@ def scatter_rows(vals: torch.Tensor, idx: torch.Tensor, *,
     their ids, in m order; ids outside ``[0, num_rows)`` dropped. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel."""
     global SCATTER_LAUNCHES
-    _check(vals, idx, "vals", (torch.float32,))
-    if idx.shape[1] != vals.shape[1]:
+    (b, m, c), m_ids = _check(vals, idx, "vals", _F32)
+    if m_ids != m:
         raise ValueError(f"idx must have one id per row of vals, got "
                          f"{tuple(idx.shape)} and {tuple(vals.shape)}")
     if num_rows < 1:
         raise ValueError(f"num_rows must be >= 1, got {num_rows}")
     if not vals.is_cuda:
         return scatter_rows_reference(vals, idx, num_rows=num_rows)
-    b, m, c = vals.shape
     if b * num_rows * c >= 2 ** 31 * 256:
         raise ValueError("the kernel's grid cannot cover this output")
-    out = vals.new_empty((b, num_rows, c))
-    err = _library().lisec_scatter_rows(
-        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), b, m, num_rows, c,
-        build.stream_of(vals))
+    if _scatter_fn is None:
+        _bind()
+    out = vals.new_empty(b, num_rows, c)
+    err = _scatter_fn(vals.data_ptr(), idx.data_ptr(), out.data_ptr(), b, m,
+                      num_rows, c, build.stream_of(vals))
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: "
                            f"cudaError {err}")
@@ -227,3 +353,37 @@ class GatherRows(torch.autograd.Function):
         dsrc = scatter_rows(g.float().contiguous(), idx,
                             num_rows=ctx.src_shape[1])
         return dsrc.to(ctx.src_dtype), None
+
+
+class GroupAndDecorate(torch.autograd.Function):
+    """Differentiable :func:`group_and_decorate`. The backward gives the
+    features' gradient by :func:`scatter_rows` of ``g[..., 3:]`` (what
+    ``GatherRows`` gave the separate feature gather), and xyz's and the
+    centres' only where they need one: the scatter of ``g[..., :3]`` and
+    minus its sum over K."""
+
+    @staticmethod
+    def forward(ctx, xyz, features, centers, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = xyz.shape[1]
+        return group_and_decorate(xyz, features, centers, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        b, m, k, w = g.shape
+        flat = idx.view(b, m * k)
+        need_xyz, need_feat, need_ctr, _ = ctx.needs_input_grad
+        g = g.float()
+        dxyz = dfeat = dctr = None
+        if need_feat:
+            dfeat = scatter_rows(
+                g[..., 3:].reshape(b, m * k, w - 3).contiguous(), flat,
+                num_rows=ctx.num_rows)
+        if need_xyz:
+            dxyz = scatter_rows(
+                g[..., :3].reshape(b, m * k, 3).contiguous(), flat,
+                num_rows=ctx.num_rows)
+        if need_ctr:
+            dctr = -g[..., :3].sum(dim=2)
+        return dxyz, dfeat, dctr, None

@@ -114,14 +114,7 @@ def segment_paint_reference(vals: torch.Tensor, cell_sorted: torch.Tensor,
     return out[..., :split].contiguous(), out[..., split:].contiguous()
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("segment_paint")
-    fn = lib.lisec_segment_paint
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+_paint_fn = None
 
 
 def _check(vals, cell_sorted, num_cells, num_max, split):
@@ -158,7 +151,7 @@ def segment_paint(vals: torch.Tensor, cell_sorted: torch.Tensor, *,
     ``split``, the pair of its channels ``[0, split)`` and ``[split, C)``,
     each contiguous. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel."""
-    global LAUNCHES
+    global LAUNCHES, _paint_fn
     _check(vals, cell_sorted, num_cells, num_max, split)
     if not vals.is_cuda:
         return segment_paint_reference(vals, cell_sorted,
@@ -168,7 +161,11 @@ def segment_paint(vals: torch.Tensor, cell_sorted: torch.Tensor, *,
     out = vals.new_empty((b, num_cells, c if split is None else split))
     tail = None if split is None else vals.new_empty(
         (b, num_cells, c - split))
-    err = _library().lisec_segment_paint(
+    if _paint_fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _paint_fn = build.bind("segment_paint", "lisec_segment_paint",
+                               [p, p, p, p, i, i, i, i, i, i, p])
+    err = _paint_fn(
         vals.data_ptr(), cell_sorted.data_ptr(), out.data_ptr(),
         None if tail is None else tail.data_ptr(), b, n, num_cells, c,
         num_max, out.shape[2], build.stream_of(vals))

@@ -14,7 +14,7 @@ ranges, relies on its grid steps running one after another to overwrite
 them, and patches the range starts afterwards. CUDA blocks run in no
 order, so here every output element has one owner thread that writes it
 exactly once, the zero rows of invalid ids included; the output comes
-from ``torch.empty`` and nothing is patched.
+from ``new_empty`` and nothing is patched.
 
 Bound on the card: it reads the ids, at most one table row per output
 row, and writes the output once: ``B * N * (8 C + 4)`` bytes, no
@@ -59,14 +59,7 @@ def segment_unpaint_reference(table: torch.Tensor,
     return torch.where(ok[..., None], out, 0.0)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("segment_unpaint")
-    fn = lib.lisec_segment_unpaint
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+_unpaint_fn = None
 
 
 def _check(table, cell_sorted):
@@ -96,7 +89,7 @@ def segment_unpaint(table: torch.Tensor, cell_sorted: torch.Tensor
     """Per-row table rows (B, N, C) f32: ``out[b, i] = table[b, cell[b,
     i]]``, zeros where the id is negative or >= R. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel."""
-    global LAUNCHES
+    global LAUNCHES, _unpaint_fn
     _check(table, cell_sorted)
     if table.device.type == "cpu":
         return segment_unpaint_reference(table, cell_sorted)
@@ -104,10 +97,13 @@ def segment_unpaint(table: torch.Tensor, cell_sorted: torch.Tensor
         raise ValueError(f"unsupported device {table.device}")
     b, r, c = table.shape
     n = cell_sorted.shape[1]
-    out = torch.empty((b, n, c), dtype=torch.float32, device=table.device)
-    err = _library().lisec_segment_unpaint(
-        table.data_ptr(), cell_sorted.data_ptr(), out.data_ptr(), b, n, r,
-        c, torch.cuda.current_stream(table.device).cuda_stream)
+    if _unpaint_fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _unpaint_fn = build.bind("segment_unpaint", "lisec_segment_unpaint",
+                                 [p, p, p, i, i, i, i, p])
+    out = table.new_empty((b, n, c))
+    err = _unpaint_fn(table.data_ptr(), cell_sorted.data_ptr(),
+                      out.data_ptr(), b, n, r, c, build.stream_of(table))
     if err != 0:
         raise RuntimeError(
             f"segment_unpaint kernel launch failed: cudaError {err}")

@@ -21,7 +21,7 @@ the JAX package: taps below the grid's low edge give negative numbers.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -214,14 +214,29 @@ def build_scatter_rulebook(coords_in: torch.Tensor, num_in: torch.Tensor,
     return _rank_in_sorted(lin_out, lin_q, n_out_cells)
 
 
+def submanifold_sources(out_of: torch.Tensor) -> torch.Tensor:
+    """The inverse of a submanifold conv's scatter rulebook, (B, K, V)
+    int32: entry [b, k, t] the input row that lands on output row t under
+    offset k, or -1; what ``spread_accumulate`` takes as ``sources``.
+
+    For a 3x3x3 kernel with stride 1, padding 1 and the output set equal
+    to the input set, the offsets in lexicographic {0, 1, 2}^3 order give
+    ``offset[K - 1 - k] = 2 - offset[k]`` on every axis, so input n feeds
+    t under k exactly when t feeds n under K - 1 - k:
+    ``in_of[b, k, t] = out_of[b, K - 1 - k, t]``, the -1 entries (outside
+    the list or the grid) included. One copy with k reversed."""
+    return out_of.flip(1)
+
+
 class _SpreadConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, features, weights, out_of, v_out):
+    def forward(ctx, features, weights, out_of, v_out, sources):
         # One product per offset, accumulated in f32 and stored in the
         # features' dtype (bf16 streams stay bf16), then one spread.
         z = torch.einsum("bvc,kcd->bkvd", features, weights)
         ctx.save_for_backward(features, weights, out_of)
-        return spread_accumulate(z.contiguous(), out_of, num_out=v_out)
+        return spread_accumulate(z.contiguous(), out_of, num_out=v_out,
+                                 sources=sources)
 
     @staticmethod
     def backward(ctx, g):
@@ -235,21 +250,25 @@ class _SpreadConv(torch.autograd.Function):
         dz = dz.view(b, k, v_in, cout)
         dw = torch.einsum("bvc,bkvd->kcd", features.float(), dz)
         dx = torch.einsum("bkvd,kcd->bvc", dz, weights.float())
-        return dx.to(features.dtype), dw.to(weights.dtype), None, None
+        return dx.to(features.dtype), dw.to(weights.dtype), None, None, None
 
 
 def sparse_conv3d_spread(features: torch.Tensor, out_of: torch.Tensor,
-                         weights: torch.Tensor, *, v_out: int
+                         weights: torch.Tensor, *, v_out: int,
+                         sources: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Scatter-form sparse conv ``y[out] = sum_k W_k x[in_k(out)]``.
 
     features (B, V_in, Cin) f32 or bf16; out_of (B, K, V_in) int32 scatter
-    rulebook; weights (K, Cin, Cout) of the features' dtype. Returns
+    rulebook; weights (K, Cin, Cout) of the features' dtype; sources, where
+    the caller holds it, the rulebook's inverse (B, K, v_out) int32
+    (:func:`submanifold_sources`), handed to the spread. Returns
     (B, v_out, Cout) f32. Differentiable in features and weights."""
     if features.dtype != weights.dtype:
         raise ValueError(f"features are {features.dtype}, weights "
                          f"{weights.dtype}")
-    return _SpreadConv.apply(features, weights, out_of.contiguous(), v_out)
+    return _SpreadConv.apply(features, weights, out_of.contiguous(), v_out,
+                             sources)
 
 
 def sparse_conv3d(features: torch.Tensor, rulebook: torch.Tensor,

@@ -393,3 +393,120 @@ def test_group_and_decorate_equals_jax():
             jnp.asarray(centers), jnp.asarray(idx)))
         assert got.shape == (b, m, k, 3 + (0 if f is None else c))
         np.testing.assert_array_equal(got, want)
+
+
+def _jax_group_zero_rows(xyz, feats, centers, idx):
+    """JAX ``group_and_decorate`` with ids outside [0, N) reading zero
+    rows, the gather kernels' rule: a zero row appended to each source
+    and those ids pointed at it (XLA's own gather would fill NaN)."""
+    n = xyz.shape[1]
+    pad = ((0, 0), (0, 1), (0, 0))
+    safe = np.where((idx >= 0) & (idx < n), idx, n)
+    return jax_group(jnp.asarray(np.pad(xyz, pad)),
+                     None if feats is None else jnp.asarray(np.pad(feats,
+                                                                   pad)),
+                     jnp.asarray(centers), jnp.asarray(safe))
+
+
+@pytest.mark.parametrize("features", [True, False])
+@pytest.mark.parametrize("ids", ["in_range", "beyond_both_ends"])
+def test_fused_grouping_equals_jax_and_its_vjp(features, ids):
+    """The grouping wrapper (one launch on the card) and its
+    ``autograd.Function`` against JAX ``group_and_decorate``: the
+    coordinates to 1e-6 relative (the same f32 subtraction: exact in
+    practice), the features exact (a copy); the gradients of features,
+    xyz and centres against the JAX VJP to 1e-6 of the largest (the same
+    f32 sums in another order)."""
+    rng = np.random.default_rng(7 + features + 2 * (ids == "in_range"))
+    b, n, m, k, c = 2, 64, 10, 8, 5
+    xyz = rng.normal(size=(b, n, 3)).astype(np.float32)
+    feats = rng.normal(size=(b, n, c)).astype(np.float32) if features \
+        else None
+    centers = rng.normal(size=(b, m, 3)).astype(np.float32)
+    lo, hi = (0, n) if ids == "in_range" else (-3, n + 3)
+    idx = rng.integers(lo, hi, (b, m, k)).astype(np.int32)
+    if ids != "in_range":
+        idx[0, 0, :3] = [-1, n, n - 1]
+    want = np.asarray(_jax_group_zero_rows(xyz, feats, centers, idx))
+    got = gr.group_and_decorate(_t(xyz), None if feats is None else _t(feats),
+                                _t(centers), _t(idx)).numpy()
+    assert got.shape == (b, m, k, 3 + (c if features else 0))
+    np.testing.assert_allclose(got[..., :3], want[..., :3], rtol=1e-6,
+                               atol=0)
+    np.testing.assert_array_equal(got[..., 3:], want[..., 3:])
+    if ids == "in_range":                    # XLA's own gather: exact
+        np.testing.assert_array_equal(got, np.asarray(jax_group(
+            jnp.asarray(xyz), None if feats is None else jnp.asarray(feats),
+            jnp.asarray(centers), jnp.asarray(idx))))
+
+    g = rng.normal(size=got.shape).astype(np.float32)
+    args = [jnp.asarray(xyz), jnp.asarray(centers)]
+    if features:
+        args.append(jnp.asarray(feats))
+
+    def f(x, ctr, *ft):
+        n_ = x.shape[1]
+        pad = ((0, 0), (0, 1), (0, 0))
+        safe = np.where((idx >= 0) & (idx < n_), idx, n_)
+        return jax_group(jnp.pad(x, pad), jnp.pad(ft[0], pad) if ft
+                         else None, ctr, jnp.asarray(safe))
+    _, vjp = jax.vjp(f, *args)
+    want_grads = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    tx, tc = _t(xyz).requires_grad_(), _t(centers).requires_grad_()
+    tf = _t(feats).requires_grad_() if features else None
+    from lisec_tpu_torch.ops import grouping
+    out = grouping.group_and_decorate(tx, tf, tc, _t(idx))
+    (out * _t(g)).sum().backward()
+    got_grads = [tx.grad, tc.grad] + ([tf.grad] if features else [])
+    for name, a, w in zip(("xyz", "centers", "features"), got_grads,
+                          want_grads):
+        np.testing.assert_allclose(a.numpy(), w, rtol=0,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=name)
+    # Where only the features need a gradient, only they get one.
+    if features:
+        tf2 = _t(feats).requires_grad_()
+        grouping.group_and_decorate(_t(xyz), tf2, _t(centers),
+                                    _t(idx)).sum().backward()
+        np.testing.assert_allclose(tf2.grad.numpy(), np.asarray(vjp(
+            jnp.ones_like(jnp.asarray(g)))[2]), rtol=0, atol=1e-5)
+
+
+def test_fused_grouping_takes_leading_dims():
+    rng = np.random.default_rng(8)
+    xyz = rng.normal(size=(2, 3, 40, 3)).astype(np.float32)
+    feats = rng.normal(size=(2, 3, 40, 4)).astype(np.float32)
+    centers = xyz[:, :, :6]
+    idx = rng.integers(0, 40, (2, 3, 6, 5)).astype(np.int32)
+    got = group_and_decorate(_t(xyz), _t(feats), _t(centers), _t(idx))
+    want = np.asarray(jax_group(jnp.asarray(xyz), jnp.asarray(feats),
+                                jnp.asarray(centers), jnp.asarray(idx)))
+    assert got.shape == (2, 3, 6, 5, 7)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bad", ["xyz_dtype", "features_dtype", "ids",
+                                 "batch", "features_rows", "strided",
+                                 "empty", "xyz_width"])
+def test_grouping_wrapper_refuses_what_the_kernel_cannot(bad):
+    xyz = torch.zeros((2, 5, 3))
+    feats = torch.zeros((2, 5, 4))
+    centers = torch.zeros((2, 3, 3))
+    idx = torch.zeros((2, 3, 2), dtype=torch.int32)
+    if bad == "xyz_dtype":
+        xyz = xyz.double()
+    elif bad == "features_dtype":
+        feats = feats.bfloat16()
+    elif bad == "ids":
+        idx = idx.long()
+    elif bad == "batch":
+        centers, idx = centers[:1], idx[:1]
+    elif bad == "features_rows":
+        feats = torch.zeros((2, 6, 4))
+    elif bad == "strided":
+        feats = feats.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "empty":
+        idx = idx[:, :, :0]
+    elif bad == "xyz_width":
+        xyz = torch.zeros((2, 5, 4))
+    with pytest.raises(ValueError):
+        gr.group_and_decorate(xyz, feats, centers, idx)

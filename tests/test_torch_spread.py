@@ -7,6 +7,8 @@ their plain versions. Integers (coords, counts, rulebooks) must be equal
 exactly.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -345,3 +347,132 @@ def test_spread_conv_bf16_keeps_each_cast(conv_case):
                                    atol=2.0 ** -7 * np.abs(o).max())
     with pytest.raises(ValueError):
         psc.sparse_conv3d_spread(ft, srb, _t(w), v_out=v_out)
+
+
+# -- the inverse map handed to the spread -------------------------------------
+
+def _inverse_np(out_of, num_out):
+    """The inverse of a scatter rulebook, by hand: [b, k, t] the n with
+    out_of[b, k, n] == t, else -1."""
+    b, k, _ = out_of.shape
+    inv = np.full((b, k, num_out), -1, np.int32)
+    bs, ks, ns = np.nonzero((out_of >= 0) & (out_of < num_out))
+    inv[bs, ks, out_of[bs, ks, ns]] = ns
+    return inv
+
+
+def _high_edge_list(grid, v):
+    """Cells of the grid's high faces, as far as the list holds."""
+    nz, ny, nx = grid
+    cells = [(z, y, x) for z in range(nz) for y in range(ny)
+             for x in range(nx) if z == nz - 1 or y == ny - 1 or x == nx - 1]
+    cells = cells[-v:]
+    coords = np.full((1, v, 3), -1, np.int32)
+    coords[0, :len(cells)] = cells
+    return coords, np.asarray([len(cells)], np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "low_faces", "high_faces"])
+def test_submanifold_sources_invert_the_rulebook_exactly(case):
+    """``submanifold_sources`` (the rulebook with k reversed) equals the
+    rulebook's inverse built by hand, and the JAX rulebook gives the same
+    integers, at grid edges too."""
+    rng = np.random.default_rng(13)
+    if case == "random":
+        coords, num = _voxel_lists(rng, 3, 64, GRID, [50, 37, 0])
+    elif case == "low_faces":
+        coords, num = _low_edge_list(GRID, 64)
+    else:
+        coords, num = _high_edge_list(GRID, 64)
+    spec = psc.SparseConvSpec(*SUBM, GRID)
+    out_of = psc.build_scatter_rulebook(_t(coords), _t(num), _t(coords),
+                                        _t(num), spec)
+    want_jax = np.asarray(jsc.build_scatter_rulebook(
+        jnp.asarray(coords), jnp.asarray(num), jnp.asarray(coords),
+        jnp.asarray(num), jsc.SparseConvSpec(*SUBM, GRID)))
+    np.testing.assert_array_equal(out_of.numpy(), want_jax)
+    got = psc.submanifold_sources(out_of)
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    inv = _inverse_np(out_of.numpy(), coords.shape[1])
+    np.testing.assert_array_equal(got.numpy(), inv)
+    np.testing.assert_array_equal(_inverse_np(want_jax, coords.shape[1]),
+                                  want_jax[:, ::-1])
+    assert (inv >= 0).sum() > num.sum()      # neighbours beyond the centre
+
+
+def test_encoder_hands_each_submanifold_layer_the_inverse_map():
+    """On ``second_tiny``'s first fixture batch: every submanifold layer
+    of ``SparseMiddleEncoder`` gets the exact inverse of its rulebook (the
+    strided ones none), and the level-0 rulebook equals the JAX one."""
+    import lisec_tpu_torch
+    from lisec_tpu_torch.data.collate import make_batches
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = lisec_tpu_torch.load_config(
+        os.path.join(root, "configs", "second_tiny.yaml"))
+    pipe = lisec_tpu_torch.build_model(cfg, device="cpu")
+    batch = next(make_batches(pipe.make_dataset("train"), cfg.budget,
+                              cfg.train.batch_size, shuffle=False))
+    args = pipe._model_args(pipe.device_batch(batch))
+    seen = []
+    hooks = [layer.register_forward_pre_hook(
+        lambda mod, a: seen.append(a[1:])) for layer in
+        pipe.model.encoder.sparse]
+    pipe.model.eval()
+    with torch.no_grad():
+        pipe.model(*args)
+    for h in hooks:
+        h.remove()
+    enc = pipe.model.encoder
+    per_level = enc.subm_per_level + 1
+    assert len(seen) == len(enc.sparse)
+    for i, (out_of, valid, *given) in enumerate(seen):
+        is_subm = i % per_level < enc.subm_per_level
+        assert bool(given) == is_subm
+        if is_subm:
+            np.testing.assert_array_equal(
+                given[0].numpy(), _inverse_np(out_of.numpy(), valid.shape[1]))
+    coords, num = args[1].numpy(), args[3].numpy()
+    want = np.asarray(jsc.build_scatter_rulebook(
+        jnp.asarray(coords), jnp.asarray(num), jnp.asarray(coords),
+        jnp.asarray(num), jsc.SparseConvSpec(*SUBM, enc.grid)))
+    np.testing.assert_array_equal(seen[0][0].numpy(), want)
+    assert (want >= 0).any()
+
+
+@pytest.mark.parametrize("case,dtype,c", [
+    ("collisions", "float32", 16), ("collisions", "bfloat16", 16),
+    ("dropped", "bfloat16", 32), ("empty_rows", "float32", 8)])
+def test_spread_accumulate_with_sources_equals_without_and_pallas(case,
+                                                                  dtype, c):
+    rng = np.random.default_rng(len(case) + c + 1)
+    b, k, n, num_out = 2, 5, 384, 300
+    tg = _streams(rng, b, k, n, num_out, case)
+    vals = rng.normal(size=(b, k, n, c)).astype(np.float32)
+    tv = _t(vals).to(getattr(torch, dtype))
+    sources = _t(_inverse_np(tg, num_out))
+    got = spread_accumulate(tv, _t(tg), num_out=num_out, sources=sources)
+    assert torch.equal(got, spread_accumulate(tv, _t(tg), num_out=num_out))
+    assert torch.equal(got, spread_accumulate_reference(
+        tv, _t(tg), num_out=num_out, sources=sources))
+    want = _jax_spread(jnp.asarray(vals).astype(dtype), tg, num_out)
+    scale = np.abs(want).max()
+    tol = 1e-6 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device", "strided"])
+def test_spread_accumulate_refuses_a_bad_sources(bad):
+    b, k, n, c, num_out = 2, 3, 10, 4, 8
+    vals = torch.zeros((b, k, n, c))
+    targets = torch.full((b, k, n), -1, dtype=torch.int32)
+    sources = torch.full((b, k, num_out), -1, dtype=torch.int32)
+    if bad == "shape":
+        sources = sources[:, :, :-1].contiguous()
+    elif bad == "dtype":
+        sources = sources.long()
+    elif bad == "device":
+        sources = sources.to("meta")
+    else:
+        sources = sources.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        spread_accumulate(vals, targets, num_out=num_out, sources=sources)
