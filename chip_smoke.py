@@ -9,7 +9,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    ``lisec_tpu_torch/csrc`` with nvcc for sm_90a, all at once;
 2. hold each kernel against its plain PyTorch version on the card, at
    the main paths' shapes plus edge cases: the fused encoder on random
-   clouds at KITTI geometry; ``segment_paint`` in its three channel
+   and edge-case clouds at KITTI geometry (one cell, all masked, cell
+   edges, a tile denser than its shared memory holds, tile boundaries) at
+   batch 4, 8 and 32, f32 and bf16, twice identical; ``segment_paint`` in its three channel
    splits and at the edges of its tiling, ``segment_unpaint``, and
    ``segment_max_sorted`` forward and backward (f32 inputs, and
    bf16-valued inputs full of ties);
@@ -42,29 +44,30 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
 6. time the PointPillars predict at batch 8 and 32, the SECOND predict
    at batch 1 and 8 with its stages (and its two paint calls at batch
    8), both train steps and their parts at batch 4, and every kernel, its
-   plain version, the encoder's sort glue and (where one exists) the
-   PyTorch call for the same function at the main paths' shapes, with
-   CUDA events;
+   plain version and (where one exists) the PyTorch call for the same
+   function at the main paths' shapes, with CUDA events;
 7. PointNet++ part segmentation (``configs/pointnet2_partseg_fixture_conv
    .yaml`` at full width: SSG, 16 categories, 50 parts, 2048 points,
-   seed-initialised weights, fixture clouds): ``fps``, ``gather_rows``
-   (plain gathers and the fused grouping) and ``scatter_rows`` against
-   their plain versions at the path's shapes and on edge cases (the
-   scatter's tiling among them); predict through ``infer`` at batch 16
-   and 1 (2 FPS and 6 gather launches each, nothing else), the kernel
-   route
+   seed-initialised weights, fixture clouds): ``fps`` (with the picked
+   points' xyz and mask, on both of its routes), ``gather_rows`` (plain
+   gathers and the fused grouping) and ``scatter_rows`` against their
+   plain versions at the path's shapes and on edge cases (the scatter's
+   tiling among them); predict through ``infer`` at batch 16 and 1 (2
+   FPS and 4 gather launches each, nothing else), the kernel route
    against the plain route; ``pointnet2_partseg_tiny`` on the card
    against the CPU; train steps at batch 16 (Adam, step schedule,
    augmentation; 3 scatter launches a step) held against the plain route
    with dropout made the identity, a short ``train(cfg)``; the predict by
-   stage, the train step by part, every point-kernel call;
-8. list under ``torch.profiler`` what ``scatter_rows``,
-   ``segment_paint``, ``gather_rows``, the grouping and
-   ``spread_accumulate`` calls run (the outputs' allocation and the
-   kernels' own launches, nothing else), then take the device time of
-   every timed call of the paint, the scatter, the gathers and the
-   spreads of a batch-8 SECOND predict, by kernel (after the timed
-   phases, so that no trace touches them);
+   stage, the train step by part, every point-kernel call (FPS beside its
+   round floor: its block reductions and barriers alone);
+8. list under ``torch.profiler`` what ``pillar_canvas_fused``,
+   ``fps_gather``, ``scatter_rows``, ``segment_paint``, ``gather_rows``,
+   the grouping and ``spread_accumulate`` calls run (the outputs' and
+   scratch's allocation and the kernels' own launches, nothing else),
+   then take the device time of every timed call of the encoder, FPS,
+   the paint, the scatter, the gathers and the spreads of a batch-8
+   SECOND predict, by kernel (after the timed phases, so that no trace
+   touches them);
 9. print the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -211,24 +214,61 @@ def kitti_geometry():
                 pc_range=tuple(cfg.voxel.point_cloud_range))
 
 
-def edge_case_clouds(b, n, geo, gen):
-    """Random clouds over (a bit more than) the range, with cloud 1 all in
-    one cell, cloud 2 all masked and cloud 3 exactly on cell edges."""
+ENCODER_EDGE_CASES = ("one_cell", "all_masked", "cell_edges", "dense_tile",
+                      "tile_boundary")
+
+
+def edge_case_clouds(b, n, geo, gen, shift=0):
+    """Random clouds over (a bit more than) the range; cloud k >= 1 takes
+    the edge case ``ENCODER_EDGE_CASES[(k - 1 + shift) % 5]``: all in one
+    cell; all masked; exactly on cell edges; every point in the cells of
+    one tile of the canvas kernel (more than its shared keys hold, one
+    cell of them alone over that); 600 points in each of the last cell of
+    a tile, the first of the next and the grid's last cell (a partial
+    tile), the rest at random."""
     import torch
+    from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
     r, (vx, vy) = geo["pc_range"], geo["voxel_size"]
+    nx, ny = geo["grid"]
     lo = torch.tensor([r[0] - 2, r[1] - 2, r[2] - 1, 0.0])
     hi = torch.tensor([r[3] + 2, r[4] + 2, r[5] + 1, 1.0])
     pts = lo + (hi - lo) * torch.rand((b, n, 4), generator=gen)
     mask = torch.rand((b, n), generator=gen) > 0.1
-    pts[1, :, 0] = r[0] + 100.5 * vx + 0.01 * torch.rand(n, generator=gen)
-    pts[1, :, 1] = r[1] + 200.5 * vy + 0.01 * torch.rand(n, generator=gen)
-    mask[1] = True
-    mask[2] = False
-    nx, ny = geo["grid"]
-    ix = torch.randint(0, nx + 1, (n,), generator=gen).float()
-    iy = torch.randint(0, ny + 1, (n,), generator=gen).float()
-    pts[3, :, 0] = ix * vx + r[0]
-    pts[3, :, 1] = iy * vy + r[1]
+
+    def in_cells(k, cells):
+        """Cloud k's first len(cells) points at random spots inside the
+        given cells, valid."""
+        m = len(cells)
+        jitter = 0.1 + 0.8 * torch.rand((m, 2), generator=gen)
+        pts[k, :m, 0] = r[0] + ((cells % nx).float() + jitter[:, 0]) * vx
+        pts[k, :m, 1] = r[1] + ((cells // nx).float() + jitter[:, 1]) * vy
+        pts[k, :m, 2] = r[2] + 0.5 + 2.0 * torch.rand(m, generator=gen)
+        mask[k, :m] = True
+
+    for k in range(1, b):
+        case = ENCODER_EDGE_CASES[(k - 1 + shift) % len(ENCODER_EDGE_CASES)]
+        if case == "one_cell":
+            pts[k, :, 0] = r[0] + 100.5 * vx + 0.01 * torch.rand(
+                n, generator=gen)
+            pts[k, :, 1] = r[1] + 200.5 * vy + 0.01 * torch.rand(
+                n, generator=gen)
+            mask[k] = True
+        elif case == "all_masked":
+            mask[k] = False
+        elif case == "cell_edges":
+            ix = torch.randint(0, nx + 1, (n,), generator=gen).float()
+            iy = torch.randint(0, ny + 1, (n,), generator=gen).float()
+            pts[k, :, 0] = ix * vx + r[0]
+            pts[k, :, 1] = iy * vy + r[1]
+        elif case == "dense_tile":
+            t0 = 40 * ek.TILE_CELLS
+            cells = t0 + torch.randint(0, ek.TILE_CELLS, (n,), generator=gen)
+            cells[torch.rand(n, generator=gen) < 0.2] = t0 + 777
+            in_cells(k, cells)
+        else:                  # tile_boundary: 600 points a cell, the rest
+            edge = [ek.TILE_CELLS - 1, ek.TILE_CELLS, 7 * ek.TILE_CELLS - 1,
+                    7 * ek.TILE_CELLS, nx * ny - 1]   # at random
+            in_cells(k, torch.tensor(edge).repeat_interleave(600))
     return pts, mask
 
 
@@ -253,23 +293,41 @@ def check_canvas(got, ref, dtype, what):
 
 
 def phase_kernel_check(gen):
+    """The fused encoder against its plain version at KITTI geometry on
+    random and edge-case clouds (every case at batch 4, then batch 8 and
+    32), f32 and bf16, and a second call identical bit for bit."""
     import torch
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
     geo = kitti_geometry()
-    b, n, c = 4, 32768, 64
-    pts, mask = edge_case_clouds(b, n, geo, gen)
-    w = 0.2 * torch.randn((9, c), generator=gen)
-    t = 0.1 * torch.randn((c,), generator=gen)
-    pts, mask, w, t = (a.cuda() for a in (pts, mask, w, t))
-    ref = ek.pillar_canvas_fused_reference(
-        pts, mask, w, t, out_dtype=torch.float32, **geo)
-    for dtype in (torch.float32, torch.bfloat16):
-        got = ek.pillar_canvas_fused(pts, mask, w, t, out_dtype=dtype, **geo)
-        torch.cuda.synchronize()
-        err = check_canvas(got, ref, dtype, f"pillar_canvas_fused {dtype}")
-        emit("kernel_check", kernel="pillar_canvas_fused",
-             dtype=str(dtype), shape=list(got.shape), max_abs_err=err,
-             nonempty_cells=int((ref != 0).any(-1).sum()))
+    n, c = 32768, 64
+    w = (0.2 * torch.randn((9, c), generator=gen)).cuda()
+    t = (0.1 * torch.randn((c,), generator=gen)).cuda()
+    for b, shift in ((4, 0), (4, 3), (8, 0), (32, 1)):
+        pts, mask = (a.cuda() for a in edge_case_clouds(b, n, geo, gen,
+                                                         shift))
+        ref = ek.pillar_canvas_fused_reference(
+            pts, mask, w, t, out_dtype=torch.float32, **geo)
+        cases = ["random"] + [
+            ENCODER_EDGE_CASES[(k - 1 + shift) % len(ENCODER_EDGE_CASES)]
+            for k in range(1, min(b, 6))]
+        for dtype in (torch.float32, torch.bfloat16):
+            got = ek.pillar_canvas_fused(pts, mask, w, t, out_dtype=dtype,
+                                         **geo)
+            torch.cuda.synchronize()
+            err = check_canvas(got, ref, dtype,
+                               f"pillar_canvas_fused b{b} {dtype}")
+            again = ek.pillar_canvas_fused(pts, mask, w, t, out_dtype=dtype,
+                                           **geo)
+            if not torch.equal(got.view(torch.int16 if dtype ==
+                                        torch.bfloat16 else torch.int32),
+                               again.view(torch.int16 if dtype ==
+                                          torch.bfloat16 else torch.int32)):
+                raise AssertionError(f"pillar_canvas_fused b{b} {dtype}: "
+                                     "two calls differ")
+            emit("kernel_check", kernel="pillar_canvas_fused",
+                 dtype=str(dtype), shape=list(got.shape), clouds=cases,
+                 max_abs_err=err, two_calls_identical=True,
+                 nonempty_cells=int((ref != 0).any(-1).sum()))
 
 
 # The three channel splits the train path paints with, at its full-width
@@ -562,9 +620,9 @@ def phase_main_path(pipe, cfg):
     out = infer(pipe, batch)
     torch.cuda.synchronize()
     launches = ek.LAUNCHES
-    if launches < 1:
-        raise AssertionError("the main path never launched "
-                             "pillar_canvas_fused")
+    if launches != 1:
+        raise AssertionError(f"the main path called pillar_canvas_fused "
+                             f"{launches} times, expected 1")
     for k in ("boxes", "scores"):
         if not torch.isfinite(out[k]).all():
             raise AssertionError(f"predict: non-finite {k}")
@@ -1061,18 +1119,18 @@ def phase_timing(pipe, cfg):
             ms_net = cuda_ms(lambda: pipe.model.head(pipe.model.backbone(x)),
                              10)
         pts, mask = dev["points"], dev["point_mask"]
-        ms_enc = cuda_ms(lambda: ek.pillar_canvas_fused(
-            pts, mask, w, t, out_dtype=enc.dtype, **geo), 20)
+
+        def call(pts=pts, mask=mask):      # this batch's, when called later
+            return ek.pillar_canvas_fused(pts, mask, w, t,
+                                          out_dtype=enc.dtype, **geo)
+        ms_enc = cuda_ms(call, 20)
         ms_plain = cuda_ms(lambda: ek.pillar_canvas_fused_reference(
             pts, mask, w, t, out_dtype=enc.dtype, **geo), 5)
-        ms_glue = cuda_ms(lambda: ek.sort_by_cell(pts, mask, **geo), 20)
-        _, pts_s, offs = ek.sort_by_cell(pts, mask, **geo)
-        out = torch.empty_like(canvas)
-        ms_kernel = cuda_ms(lambda: ek.launch_canvas_kernel(
-            pts_s, offs, w, t, out, nx=nx, voxel_size=enc.voxel_size,
-            pc_range=enc.pc_range), 20)
-        valid = int(ek.pillar_cells(pts, mask, **geo)[1].sum())
-        nonempty = int((offs[:, 1:] > offs[:, :-1]).sum())
+        cell, ok, _, _ = ek.pillar_cells(pts, mask, **geo)
+        valid = int(ok.sum())
+        nonempty = int(torch.unique(
+            (cell + torch.arange(b, device="cuda")[:, None] * nx * ny)[ok])
+            .numel())
         bound, bound_by, nbytes = encoder_bound(
             pts, mask, w, t, canvas.numel(), canvas.element_size(), valid,
             nonempty)
@@ -1082,20 +1140,20 @@ def phase_timing(pipe, cfg):
              device_resident_clouds_per_s=b * 1e3 / ms_dev,
              model_forward_ms=ms_model, backbone_head_ms=ms_net,
              decode_nms_ms=ms_dev - ms_model)
-        # What the kernel alone moves: the cell-sorted points and the
-        # offset table in, the canvas out (the function's bound above
-        # counts the raw points and mask instead).
-        kernel_bytes = (pts_s.nbytes + offs.nbytes + w.nbytes + t.nbytes
-                        + out.nbytes)
-        emit("encoder", batch=b, wrapper_ms=ms_enc, kernel_ms=ms_kernel,
-             glue_ms=ms_glue, plain_ms=ms_plain, bound_ms=bound,
-             launches_per_predict=launches,
-             bound_by=bound_by, bytes=nbytes, valid_points=valid,
-             nonempty_cells=nonempty, kernel_bytes=kernel_bytes,
-             kernel_gb_per_s=kernel_bytes / ms_kernel / 1e6)
-        rows[b] = dict(ms=ms_enc, plain_ms=ms_plain, bound_ms=bound,
-                       bound_by=bound_by)
-    return rows[8]
+        # The card's own time to write a canvas of this size (a memset):
+        # the floor the canvas kernel's stores reach at best.
+        blank = torch.empty_like(canvas)
+        row = dict(batch=b, ms=ms_enc, plain_ms=ms_plain, bound_ms=bound,
+                   bound_by=bound_by, library_ms=None,
+                   canvas_write_ms=cuda_ms(blank.zero_, 20),
+                   launches_per_predict=launches, bytes=nbytes,
+                   valid_points=valid, nonempty_cells=nonempty)
+        emit("encoder", **row)
+        # The two kernels' own times come from a profiler trace after the
+        # timed phases (phase_device_times).
+        DEVICE_TIMED.append(("pillar_canvas_fused", row, call))
+        rows[b] = row
+    return rows
 
 
 # -- SECOND: the spread kernel, serving, timing -------------------------------
@@ -1531,10 +1589,11 @@ PARTSEG_CFG = os.path.join(ROOT, "configs",
                            "pointnet2_partseg_fixture_conv.yaml")
 PARTSEG_TINY_CFG = os.path.join(ROOT, "configs", "pointnet2_partseg_tiny.yaml")
 # The plain gathers of a full-width predict at batch 16: (source rows, C,
-# ids per cloud); its two groupings (the gather launch that also subtracts
-# the centres and writes the MLP's input): (points, feature channels or
-# None, centres, neighbours); and the scatters of its train step: (rows,
-# C, table rows).
+# ids per cloud; the two xyz shapes are what fps_gather replaced, kept as
+# checks of the C = 3 gather); its two groupings (the gather launch that
+# also subtracts the centres and writes the MLP's input): (points, feature
+# channels or None, centres, neighbours); and the scatters of its train
+# step: (rows, C, table rows).
 PARTSEG_GATHER_SHAPES = ((2048, 3, 512), (512, 3, 128), (128, 256, 1536),
                          (512, 128, 6144))
 PARTSEG_GROUP_SHAPES = ((2048, None, 512, 32), (512, 128, 128, 64))
@@ -1542,7 +1601,7 @@ PARTSEG_SCATTER_SHAPES = ((8192, 128, 512), (1536, 256, 128),
                           (6144, 128, 512))
 PARTSEG_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 0, "segment_unpaint": 0,
-    "spread_accumulate": 0, "fps": 2, "gather_rows": 6, "scatter_rows": 0}
+    "spread_accumulate": 0, "fps": 2, "gather_rows": 4, "scatter_rows": 0}
 PARTSEG_LAUNCHES_PER_TRAIN_STEP = {**PARTSEG_LAUNCHES_PER_PREDICT,
                                    "scatter_rows": 3}
 
@@ -1570,17 +1629,19 @@ def zero_all_launches():
 
 
 @contextlib.contextmanager
-def swapped_point_ops(fps, gather, scatter, group):
-    """Swap ``fps`` (as ``ops/fps.py`` calls it), ``gather_rows``,
-    ``scatter_rows`` and ``group_and_decorate`` (as ``GatherRows`` and
-    ``GroupAndDecorate`` call them), here only: the package has no switch
-    on the card."""
-    from lisec_tpu_torch.ops import fps as fps_op
+def swapped_point_ops(fps_gather, gather, scatter, group):
+    """Swap ``fps_gather`` (as ``SetAbstraction`` calls it),
+    ``gather_rows``, ``scatter_rows`` and ``group_and_decorate`` (as
+    ``GatherRows`` and ``GroupAndDecorate`` call them), here only: the
+    package has no switch on the card."""
+    from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
-    saved = [(fps_op, "fps", fps_op.fps), (gr, "gather_rows", gr.gather_rows),
+    saved = [(fk, "fps_gather", fk.fps_gather),
+             (gr, "gather_rows", gr.gather_rows),
              (gr, "scatter_rows", gr.scatter_rows),
              (gr, "group_and_decorate", gr.group_and_decorate)]
-    fps_op.fps, gr.gather_rows, gr.scatter_rows = fps, gather, scatter
+    fk.fps_gather, gr.gather_rows, gr.scatter_rows = (fps_gather, gather,
+                                                      scatter)
     gr.group_and_decorate = group
     try:
         yield
@@ -1593,7 +1654,8 @@ def plain_point_ops():
     """The point kernels' callers on their plain PyTorch versions."""
     from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
-    return swapped_point_ops(fk.fps_reference, gr.gather_rows_reference,
+    return swapped_point_ops(fk.fps_gather_reference,
+                             gr.gather_rows_reference,
                              gr.scatter_rows_reference,
                              gr.group_and_decorate_reference)
 
@@ -1620,17 +1682,29 @@ def phase_point_kernel_check(pipe, cfg, gen):
 
     def check_fps(what, pts, mask, m):
         got = fk.fps(pts, mask, m)
+        idx, new_xyz, new_mask = fk.fps_gather(pts, mask, m)
         torch.cuda.synchronize()
         ref = fk.fps_reference(pts, mask, m)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"fps {what}: {int((got != ref).sum())} "
-                                 "picks differ from the plain version")
+        for name, picks in (("fps", got), ("fps_gather", idx)):
+            if not torch.equal(picks, ref):
+                raise AssertionError(
+                    f"{name} {what}: {int((picks != ref).sum())} picks "
+                    "differ from the plain version")
+        sel = ref.long()
+        want_xyz = pts.gather(1, sel[..., None].expand(-1, -1, 3))
+        if not torch.equal(new_xyz.view(torch.int32),
+                           want_xyz.view(torch.int32)) \
+                or not torch.equal(new_mask, mask.gather(1, sel)):
+            raise AssertionError(f"fps_gather {what}: the picked xyz or "
+                                 "mask differ from the gather of the picks")
         picked_valid = mask.gather(1, got.long())
         some = mask.any(1)
         if not picked_valid[some].all() or got[~some].any():
             raise AssertionError(f"fps {what}: a masked point was picked")
         emit("kernel_check", kernel="fps", case=what,
              points=list(pts.shape), samples=m, picks_equal=True,
+             new_xyz_and_mask_bit_equal=True,
+             route="registers" if pts.shape[1] <= 2048 else "shared",
              valid_points_per_cloud=mask.sum(1).tolist()[:8],
              distinct_picks_per_cloud=[len(set(r)) for r in
                                        got.tolist()][:8])
@@ -1641,7 +1715,7 @@ def phase_point_kernel_check(pipe, cfg, gen):
     idx1 = check_fps("sa1_full_width", pts, mask, 512)
     check_fps("sa2_full_width", gr.gather_rows(pts, idx1),
               mask.gather(1, idx1.long()), 128)
-    n = 1500                          # no multiple of the 1024-thread block
+    n = 1500                          # no multiple of the 256-thread block
     pts = torch.rand((4, n, 3), generator=g, device="cuda")
     mask = torch.rand((4, n), generator=g, device="cuda") > 0.1
     mask[0] = False                                  # all masked
@@ -1656,6 +1730,15 @@ def phase_point_kernel_check(pipe, cfg, gen):
         raise AssertionError("fps: the short cloud's picks")
     check_fps("batch_1_m_equals_n", pts[2:3].contiguous(), mask[2:3].clone(),
               n)
+    # The shared-memory route: N above the register route's 2,048, up to
+    # the limit, with the same edge cases.
+    for n in (2049, fk.MAX_POINTS):
+        pts = torch.rand((4, n, 3), generator=g, device="cuda")
+        mask = torch.rand((4, n), generator=g, device="cuda") > 0.1
+        mask[0] = False
+        pts[3] = torch.randint(-2, 3, (n, 3), generator=g,
+                               device="cuda").float()
+        check_fps(f"shared_route_n{n}", pts, mask, 256)
 
     def same_bits(a, b):
         bits = torch.int32 if a.dtype == torch.float32 else torch.int16
@@ -1818,7 +1901,7 @@ def phase_point_kernel_check(pipe, cfg, gen):
 
 def phase_partseg_serving(pipe, cfg):
     """Full-width PointNet++ predict at batch 16 and 1 through ``infer``:
-    launches (2 FPS and 6 gathers per predict, nothing else), outputs,
+    launches (2 FPS and 4 gathers per predict, nothing else), outputs,
     and the kernel route against the plain route on the card."""
     import torch
     from lisec_tpu_torch.api import infer
@@ -1905,7 +1988,7 @@ def partseg_loss_and_grads(pipe, batch):
 
 def phase_partseg_train():
     """Full-width PointNet++ train steps at batch 16 (Adam, the step
-    schedule, augmentation on) through ``train_step``: launches (2 FPS, 6
+    schedule, augmentation on) through ``train_step``: launches (2 FPS, 4
     gathers, 3 scatters a step), finite loss, every tensor moved; the first
     step's loss and gradients against the same step over the plain
     versions, dropout made the identity for that comparison; then a short
@@ -2010,21 +2093,32 @@ def phase_partseg_train():
 
 
 def fps_call_row(points, mask, m):
-    """One ``fps`` call timed on the tensors the path handed it. Bound:
-    about 10 f32 operations per valid point per round over the f32 rate,
-    against the points, mask and picks over the memory rate."""
+    """One ``fps_gather`` call timed on the tensors the path handed it,
+    beside ``fps`` (the picks alone), its plain version and the round
+    floor (the M block reductions and barriers alone at the same block
+    shape). Bound: about 10 f32
+    operations per valid point per round over the f32 rate, against the
+    points, mask, picks and picked rows over the memory rate."""
     from lisec_tpu_torch.ops.cuda import fps as fk
+    b, n, _ = points.shape
     valid = int(mask.sum())
-    nbytes = points.nbytes + mask.nbytes + points.shape[0] * m * 4
+    nbytes = points.nbytes + mask.nbytes + b * m * (4 + 12 + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 10 * valid * (m - 1) / F32_FLOPS * 1e3
-    return dict(
+
+    def call():
+        return fk.fps_gather(points, mask, m)
+    row = dict(
         points=list(points.shape), samples=m, valid_points=valid,
-        ms=cuda_ms(lambda: fk.fps(points, mask, m), 20),
-        plain_ms=cuda_ms(lambda: fk.fps_reference(points, mask, m), 3),
+        ms=cuda_ms(call, 20),
+        picks_only_ms=cuda_ms(lambda: fk.fps(points, mask, m), 20),
+        plain_ms=cuda_ms(lambda: fk.fps_gather_reference(points, mask, m), 3),
+        round_floor_ms=cuda_ms(lambda: fk.round_floor(b, n, m), 20),
         library_ms=None, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes, operations=10 * valid * (m - 1))
+    DEVICE_TIMED.append(("fps", row, call))
+    return row
 
 
 def gather_call_row(src, idx):
@@ -2143,16 +2237,17 @@ def scatter_call_row(vals, idx, num_rows):
 
 def partseg_stage_ms(pipe, dev, runs=5):
     """Mean ms of a device-resident predict's stages, by events around the
-    model's own calls (wrapped here only): FPS, ball query, grouping (the
-    SA gathers), the SA and global MLPs, feature propagation (FP3, 3-NN,
-    interpolation, MLPs) and the head."""
+    model's own calls (wrapped here only): FPS (with the picked points'
+    xyz and mask), ball query, grouping, the SA and global MLPs, feature
+    propagation (FP3, 3-NN, interpolation, MLPs) and the head."""
     import torch
     from lisec_tpu_torch.models import pointnet2
+    from lisec_tpu_torch.ops.cuda import fps as fk
     model = pipe.model
     timer = EventTimer()
-    functions = {"farthest_point_sampling": "fps", "ball_query": "ball_query",
-                 "gather_points": "grouping",
-                 "group_and_decorate": "grouping"}
+    functions = [(fk, "fps_gather", "fps"),
+                 (pointnet2, "ball_query", "ball_query"),
+                 (pointnet2, "group_and_decorate", "grouping")]
     wrapped = [(mlp, "forward", "sa_mlps") for sa in model.sa
                for mlp in sa.mlps]
     wrapped += [(model.global_sa, "forward", "sa_mlps"),
@@ -2161,7 +2256,7 @@ def partseg_stage_ms(pipe, dev, runs=5):
                 (model.head_dense, "forward", "head"),
                 (model.head_bn, "forward", "head"),
                 (model.head_out, "forward", "head")]
-    saved = {f: getattr(pointnet2, f) for f in functions}
+    saved = [(mod, f, getattr(mod, f)) for mod, f, _ in functions]
 
     def run():
         with torch.no_grad():
@@ -2171,14 +2266,14 @@ def partseg_stage_ms(pipe, dev, runs=5):
     try:
         for obj, attr, name in wrapped:
             setattr(obj, attr, timer.wrap(name, getattr(obj, attr)))
-        for f, name in functions.items():
-            setattr(pointnet2, f, timer.wrap(name, saved[f]))
+        for (mod, f, fn), (_, _, name) in zip(saved, functions):
+            setattr(mod, f, timer.wrap(name, fn))
         total = cuda_ms(run, iters=runs, warmup=0)
     finally:
         for obj, attr, _ in wrapped:
             delattr(obj, attr)
-        for f, fn in saved.items():
-            setattr(pointnet2, f, fn)
+        for mod, f, fn in saved:
+            setattr(mod, f, fn)
     ms = timer.ms_per_run(runs)
     ms["rest"] = total - sum(ms.values())
     ms["predict"] = total
@@ -2253,9 +2348,11 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
     gather, scatter = gr.gather_rows, gr.scatter_rows   # before the swap
     group = gr.group_and_decorate
 
+    fps_gather = fk.fps_gather                         # before the swap
+
     def rec_fps(points, mask, m):
         calls["fps"].append((points, mask, m))
-        return fk.fps(points, mask, m)
+        return fps_gather(points, mask, m)
 
     def rec_gather(src, idx):
         calls["gather_rows"].append((gather_call_row, (src.detach(), idx)))
@@ -2285,24 +2382,36 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
     for kernel, per_call in zip(("fps", "gather_rows", "scatter_rows"), rows):
         for i, call in enumerate(per_call):
             emit("partseg_kernel", kernel=kernel, call=i, **call)
-    if [len(r) for r in rows] != [2, 6, 3] or sum(
+    if [len(r) for r in rows] != [2, 4, 3] or sum(
             "centers" in r for r in rows[1]) != 2:
         raise AssertionError(f"partseg kernel calls {[len(r) for r in rows]}")
     return rows
 
 
+# What one call of each wrapper launches where the device-time phase
+# checks it, by kernel name.
+DEVICE_LAUNCHES = {
+    "fps": ({"fps_reg_kernel", "fps_smem_kernel"}, 1),
+    "pillar_canvas_fused": ({"cells_kernel", "canvas_kernel"}, 2)}
+
+
 def phase_device_times():
     """The kernels' own time on the card (``device_ms``) of every timed
-    ``segment_paint``, ``scatter_rows``, ``gather_rows`` and
-    ``spread_accumulate`` call, and what it launched (``device_parts``),
-    filled into its row."""
+    ``pillar_canvas_fused``, ``fps``, ``segment_paint``, ``scatter_rows``,
+    ``gather_rows`` and ``spread_accumulate`` call, and what it launched
+    (``device_parts``), filled into its row."""
     for kernel, row, call in DEVICE_TIMED:
         row["device_ms"], row["device_parts"] = device_parts(call)
+        got = {k.split("<")[0]: p["per_call"]
+               for k, p in row["device_parts"].items()}
+        if kernel in DEVICE_LAUNCHES:
+            names, count = DEVICE_LAUNCHES[kernel]
+            if not set(got) <= names or sum(got.values()) != count:
+                raise AssertionError(f"{kernel} call: launched {got}, "
+                                     f"expected {count} of {names}")
         if kernel == "spread_accumulate":
             # A given map: the accumulate alone; else the invert and the
             # accumulate; no memset either way.
-            got = {k.split("<")[0]: p["per_call"]
-                   for k, p in row["device_parts"].items()}
             want = {"spread_accumulate_kernel": 1}
             if row["inverse_map"] == "built":
                 want["spread_invert_kernel"] = 1
@@ -2310,9 +2419,10 @@ def phase_device_times():
                 raise AssertionError(f"spread call {row['vals']}: launched "
                                      f"{got}, expected {want}")
         emit("device_time", kernel=kernel,
-             call={k: row[k] for k in ("rows", "vals", "src", "ids",
-                                       "table_rows", "num_rows", "num_out",
-                                       "num_max", "split", "dtype")
+             call={k: row[k] for k in ("batch", "points", "samples", "rows",
+                                       "vals", "src", "ids", "table_rows",
+                                       "num_rows", "num_out", "num_max",
+                                       "split", "dtype")
                    if k in row},
              ms=row["ms"], device_ms=row["device_ms"],
              device_parts=row["device_parts"],
@@ -2329,8 +2439,13 @@ def phase_profile_listing():
     feature gather's, the grouping at SA2's (one launch for two gathers,
     the subtraction and the concatenation), ``spread_accumulate`` at a
     level-0 submanifold conv's with its inverse map (one launch) and
-    without (the invert and the accumulate, no memset)."""
+    without (the invert and the accumulate, no memset), ``fps_gather`` at
+    SA1's (one launch for the picks, their xyz and their mask) and
+    ``pillar_canvas_fused`` at a batch-8 KITTI predict's (the cell and
+    canvas kernels, no sort, search, gather or memset)."""
     import torch
+    from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
+    from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
@@ -2353,7 +2468,19 @@ def phase_profile_listing():
     perm = torch.argsort(torch.rand((b, k, n), generator=g, device="cuda"))
     targets = torch.where(perm < n // 7, perm, -1).to(torch.int32)
     sources = inverse_map(targets, n)
+    cloud = torch.rand((16, 2048, 3), generator=g, device="cuda")
+    cloud_mask = torch.rand((16, 2048), generator=g, device="cuda") > 0.05
+    geo = kitti_geometry()
+    pts, pmask = (a.cuda() for a in edge_case_clouds(
+        8, 32768, geo, torch.Generator().manual_seed(5)))
+    w = torch.randn((9, 64), generator=g, device="cuda")
+    t = torch.randn((64,), generator=g, device="cuda")
     calls = {
+        "fps_gather": (lambda: fk.fps_gather(cloud, cloud_mask, 512),
+                       {"fps_reg_kernel": 1}),
+        "pillar_canvas_fused": (lambda: ek.pillar_canvas_fused(
+            pts, pmask, w, t, **geo), {"cells_kernel": 1,
+                                       "canvas_kernel": 1}),
         "scatter_rows": (lambda: gr.scatter_rows(vals, idx, num_rows=512),
                          {"scatter_kernel": 1}),
         "segment_paint": (lambda: sp.segment_paint(
@@ -2458,11 +2585,14 @@ def main() -> int:
             **({"device_ms": sum(c["device_ms"] for c in per_call)}
                if all("device_ms" in c for c in per_call) else {})}
 
+    # The encoder: the call of a batch-8 predict (two kernel launches, by
+    # name in device_parts); batch 32's call beside it.
     kernels = [{
         **ek.KERNEL_INFO, "launches": launches, "max_abs_err": err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]
+        **{k: timing[8][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "device_ms",
+                                      "device_parts")},
+        "kernel_launches_per_call": 2, "batch_32": timing[32]}]
     # The segment kernels: the times of one PointPillars train step's
     # calls together (three paints; the unpaints of the decoration and the
     # segment-max backward), each call also on its own under "calls". No
@@ -2512,6 +2642,8 @@ def main() -> int:
             "launches_per_predict": PARTSEG_LAUNCHES_PER_PREDICT[name],
             "launches_per_train_step":
                 partseg_train_launches[name] / TRAIN_STEPS,
+            **({"round_floor_ms": sum(c["round_floor_ms"] for c in rows)}
+               if info is fk.KERNEL_INFO else {}),
             "calls": rows})
     print(json.dumps({"kernels": kernels}))
     print(CARD)

@@ -72,7 +72,8 @@ class FusedPillarEncoder(nn.Module):
         if self.training:
             return self._train_path(points, point_mask)
         w, t = self.folded_weights()
-        return pillar_canvas_fused(points, point_mask, w, t, grid=self.grid,
+        return pillar_canvas_fused(points, point_mask.bool(), w, t,
+                                   grid=self.grid,
                                    voxel_size=self.voxel_size,
                                    pc_range=self.pc_range,
                                    out_dtype=self.dtype)

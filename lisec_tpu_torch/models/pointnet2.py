@@ -20,8 +20,8 @@ from torch import nn
 from lisec_tpu_torch.models.common import (
     BatchNorm, Dense, SharedMLP, masked_max, reset_parameters)
 from lisec_tpu_torch.ops.ball_query import ball_query
-from lisec_tpu_torch.ops.fps import farthest_point_sampling
-from lisec_tpu_torch.ops.grouping import gather_points, group_and_decorate
+from lisec_tpu_torch.ops.cuda import fps as fps_kernel
+from lisec_tpu_torch.ops.grouping import group_and_decorate
 from lisec_tpu_torch.ops.three_nn import three_interpolate, three_nn
 
 
@@ -43,9 +43,10 @@ class SetAbstraction(nn.Module):
     def forward(self, xyz, features, mask):
         """xyz (B, N, 3), features (B, N, C) or None, mask (B, N) ->
         (new_xyz (B, M, 3), new_features (B, M, C'), new_mask (B, M))."""
-        idx = farthest_point_sampling(xyz, mask, self.num_samples)
-        new_xyz = gather_points(xyz, idx)
-        new_mask = torch.gather(mask, -1, idx.long())
+        # One launch on the card: the picks, their xyz and their mask.
+        _, new_xyz, new_mask = fps_kernel.fps_gather(
+            xyz.float().contiguous(), mask.bool().contiguous(),
+            self.num_samples)
         outs = []
         for radius, k, mlp in zip(self.radii, self.num_neighbors, self.mlps):
             nbr = ball_query(new_xyz, xyz, mask, radius=radius,

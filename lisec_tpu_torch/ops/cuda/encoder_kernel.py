@@ -15,19 +15,27 @@ mask (1 B) of every point and write the canvas once, B * ncells * C *
 bytes(out). At KITTI size (214,272 cells, C = 64, bf16, 32,768 points)
 that is 27.43 MB of canvas + 0.56 MB of points, about 28.0 MB per cloud,
 or about 8.4 us per cloud at 3.35 TB/s; its arithmetic (8 C flops per
-point) is negligible. It is bound by the canvas write. The design writes
-every canvas element exactly once, from registers, in the output dtype,
-and writes no per-cell table that is read back: the only intermediates
-are the cell-sorted points and a (B, ncells + 1) int32 offset table
-(0.86 MB per cloud), built by the torch glue below.
+point) is negligible. It is bound by the canvas write.
 
-Design (simple first; TMA, a persistent grid and fusing the sort are
-later work): torch sorts the points by cell id and finds each cell's
-range with ``searchsorted``; the kernel runs one warp per (cloud, cell),
-lane l owning channels l, l+32, ...; it walks the cell's points 32 at a
-time (one float4 load per lane, then warp shuffles), keeps the running
-max of u and the xyz sums in registers, applies the epilogue and writes
-one coalesced row. No atomics: the result is deterministic.
+Design (``csrc/encoder_kernel.cu``), two launches and no torch op
+around them but the allocation of the canvas and of one int32 scratch:
+a first kernel computes every point's cell id with ``pillar_cells``'
+f32 arithmetic and counts, per chunk of 1,024 points, the points that
+land in each tile of 2,048 cells; a second kernel gives each (cloud,
+tile) a block that streams the ids of the chunks holding any of its
+points (from L2), puts the keys (cell, point index) of those that land
+in order in shared memory (each into its cell's bucket, then to the
+place its rank in the bucket gives it), writes the tile's empty rows as
+zeros with 16-byte stores, and walks each non-empty cell with one warp
+over its points in point order (running max of u and f64 xyz sums in
+registers, the epilogue, one coalesced row). A tile with more points
+than the 4,096 keys its shared memory holds is taken in runs of cells
+that fit, and a cell with more than that alone is walked by one warp
+straight from the ids. No atomics reach the canvas: every element is
+written once, in an order the keys fix, so a run repeats bit for bit.
+The glue this replaces (``sort_by_cell``: a stable ``torch.sort``, a
+gather, an ``arange`` and a ``searchsorted``) stays for the plain
+version and the train path.
 
 On a CPU tensor ``pillar_canvas_fused`` computes the plain version
 ``pillar_canvas_fused_reference``; on a CUDA tensor it launches the
@@ -37,6 +45,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -86,8 +95,9 @@ def pillar_cells(points: torch.Tensor, point_mask: torch.Tensor, *,
 
 
 def sort_by_cell(points, point_mask, *, grid, voxel_size, pc_range):
-    """The glue around the kernel: co-sort the points by cell id and find
-    every cell's point range.
+    """Co-sort the points by cell id and find every cell's point range
+    (the plain version's and the train path's glue; the kernels order the
+    points in shared memory instead).
 
     Returns (cell_s (B, N) int32, pts_s (B, N, 4) f32, offsets
     (B, ncells + 1) int32): the points of cell c of cloud b are
@@ -168,28 +178,46 @@ def pillar_canvas_fused_reference(
 
 _canvas_fn = None
 
+# Mirrors of the CUDA source's constants: points a chunk and cells a tile
+# (which size the int32 scratch of ids and per-chunk tile counts), the
+# keys a tile orders in shared memory at once, the points a cloud (a
+# key's index bits) and the cells a cloud.
+CHUNK_POINTS = 1024
+TILE_CELLS = 2048
+KEYS_PER_PASS = 4096
+MAX_POINTS = 1 << 20
+MAX_CELLS = 4096 * TILE_CELLS
 
-def launch_canvas_kernel(pts_s: torch.Tensor, offsets: torch.Tensor,
-                         w: torch.Tensor, t: torch.Tensor,
-                         out: torch.Tensor, *, nx: int,
-                         voxel_size: Sequence[float],
-                         pc_range: Sequence[float]) -> None:
-    """Launch the CUDA kernel alone on the glue's outputs (the wrapper's
-    inner step; benchmarks time it on its own)."""
+
+@functools.lru_cache(maxsize=None)
+def _reciprocals(voxel_size: Tuple[float, float]) -> Tuple[float, float]:
+    """The f32 reciprocals ``pillar_cells`` multiplies by."""
+    return tuple(float(np.float32(1.0) / np.float32(v))
+                 for v in voxel_size)
+
+
+def _launch(points, point_mask, w, t, out, *, grid, voxel_size,
+            pc_range) -> None:
+    """Launch the two kernels on checked CUDA tensors."""
     global LAUNCHES, _canvas_fn
-    b, n, _ = pts_s.shape
-    ncells = out.shape[1]
-    c = w.shape[1]
+    b, n, _ = points.shape
+    nx, ny = grid
+    # (B, N rounded up to 4) ids, then (B, nchunks, ntiles) counts.
+    words = b * (-(-n // 4) * 4 + -(-n // CHUNK_POINTS)
+                 * -(-(nx * ny) // TILE_CELLS))
+    scratch = points.new_empty((words,), dtype=torch.int32)
     if _canvas_fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _canvas_fn = build.bind(
             "encoder_kernel", "lisec_pillar_canvas_fused",
-            [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, p])
+            [p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, f, f, f, f, i, p])
+    inv0, inv1 = _reciprocals(tuple(voxel_size[:2]))
+    r = pc_range
     err = _canvas_fn(
-        pts_s.data_ptr(), offsets.data_ptr(), w.data_ptr(), t.data_ptr(),
-        out.data_ptr(), b, n, ncells, c, nx, voxel_size[0], voxel_size[1],
-        pc_range[0], pc_range[1], int(out.dtype == torch.bfloat16),
-        build.stream_of(pts_s))
+        points.data_ptr(), point_mask.data_ptr(), w.data_ptr(),
+        t.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, w.shape[1],
+        nx, ny, voxel_size[0], voxel_size[1], r[0], r[1], r[2], r[5], inv0,
+        inv1, int(out.dtype == torch.bfloat16), build.stream_of(points))
     if err != 0:
         raise RuntimeError(
             f"pillar_canvas_fused kernel launch failed: cudaError {err}")
@@ -202,9 +230,16 @@ def _check(points, point_mask, w, t, out_dtype):
             or points.shape[-1] != 4:
         raise ValueError(f"points must be (B, N, 4) float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
-    if point_mask.shape != points.shape[:2]:
-        raise ValueError(f"point_mask must be {tuple(points.shape[:2])}, "
-                         f"got {tuple(point_mask.shape)}")
+    if point_mask.shape != points.shape[:2] \
+            or point_mask.dtype != torch.bool:
+        raise ValueError(f"point_mask must be {tuple(points.shape[:2])} "
+                         f"bool, got {tuple(point_mask.shape)} "
+                         f"{point_mask.dtype}")
+    if points.data_ptr() % 16:
+        raise ValueError("points must be 16-byte aligned (a float4 a point)")
+    if points.shape[1] > MAX_POINTS:
+        raise ValueError(f"the kernel takes at most {MAX_POINTS} points "
+                         "a cloud")
     c = w.shape[-1]
     if w.dtype != torch.float32 or w.shape != (9, c) or t.shape != (c,) \
             or t.dtype != torch.float32:
@@ -219,7 +254,8 @@ def _check(points, point_mask, w, t, out_dtype):
     for name, a in (("point_mask", point_mask), ("w", w), ("t", t)):
         if a.device != dev:
             raise ValueError(f"{name} is on {a.device}, points on {dev}")
-    for name, a in (("points", points), ("w", w), ("t", t)):
+    for name, a in (("points", points), ("point_mask", point_mask),
+                    ("w", w), ("t", t)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -229,11 +265,12 @@ def pillar_canvas_fused(
     t: torch.Tensor, *, grid: Tuple[int, int], voxel_size: Sequence[float],
     pc_range: Sequence[float], out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """One-kernel pillar encoder: returns the (B, ny * nx, C) canvas.
+    """Fused pillar encoder: returns the (B, ny * nx, C) canvas.
 
-    points (B, N, 4) f32 x, y, z, reflectance; point_mask (B, N); w (9, C)
-    and t (C,) the BN-folded PFN weights and bias. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel."""
+    points (B, N, 4) f32 x, y, z, reflectance, 16-byte aligned;
+    point_mask (B, N) bool; w (9, C) and t (C,) the BN-folded PFN weights
+    and bias. A CPU tensor takes the plain version; a CUDA tensor launches
+    the two kernels (one call in ``LAUNCHES``)."""
     _check(points, point_mask, w, t, out_dtype)
     kw = dict(grid=grid, voxel_size=voxel_size, pc_range=pc_range)
     if points.device.type == "cpu":
@@ -242,9 +279,9 @@ def pillar_canvas_fused(
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     nx, ny = grid
-    _, pts_s, offsets = sort_by_cell(points, point_mask, **kw)
+    if nx * ny > MAX_CELLS:
+        raise ValueError(f"the kernel takes at most {MAX_CELLS} cells")
     out = points.new_empty((points.shape[0], nx * ny, w.shape[1]),
                            dtype=out_dtype)
-    launch_canvas_kernel(pts_s, offsets, w, t, out, nx=nx,
-                         voxel_size=voxel_size, pc_range=pc_range)
+    _launch(points, point_mask, w, t, out, **kw)
     return out

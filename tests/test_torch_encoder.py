@@ -38,11 +38,23 @@ def _big(w, t, r):
             + np.abs(w[8]) * coord_max[1] + np.abs(t) + 1.0)
 
 
+def _in_cells(rng, cells):
+    """x, y at random spots inside the given cells (ids iy * nx + ix)."""
+    r, (vx, vy), (nx, _) = GEO["pc_range"], GEO["voxel_size"], GEO["grid"]
+    jitter = rng.uniform(0.1, 0.9, cells.shape + (2,))
+    x = r[0] + (cells % nx + jitter[..., 0]) * vx
+    y = r[1] + (cells // nx + jitter[..., 1]) * vy
+    return x.astype(np.float32), y.astype(np.float32)
+
+
 def _cloud(case, rng):
+    # dense_tile needs more points than the canvas kernel sorts at once.
+    n = ek.KEYS_PER_PASS + 64 if case == "dense_tile" else N
     pts = rng.uniform([-1, -25, -4, 0], [12, 25, 2, 1],
-                      (B, N, 4)).astype(np.float32)
-    mask = rng.random((B, N)) > 0.1
+                      (B, n, 4)).astype(np.float32)
+    mask = rng.random((B, n)) > 0.1
     r, (vx, vy), (nx, ny) = GEO["pc_range"], GEO["voxel_size"], GEO["grid"]
+    tile = ek.TILE_CELLS
     if case == "all_invalid":
         mask[:] = False
     elif case == "one_cell":
@@ -55,6 +67,23 @@ def _cloud(case, rng):
         iy = rng.integers(0, ny + 1, (B, N)).astype(np.float32)
         pts[..., 0] = ix * np.float32(vx) + np.float32(r[0])
         pts[..., 1] = iy * np.float32(vy) + np.float32(r[1])
+    elif case == "dense_tile":
+        # Cloud 0: every point in the cells of the second tile, a third of
+        # them in one cell; cloud 1: every point in one cell of the first.
+        cells = tile + rng.integers(0, tile, n)
+        cells[: n // 3] = tile + 77
+        pts[0, :, 0], pts[0, :, 1] = _in_cells(rng, cells)
+        pts[1, :, 0], pts[1, :, 1] = _in_cells(rng, np.full(n, 1000))
+        pts[..., 2] = rng.uniform(-2.5, 0.5, (B, n))
+        mask[:] = True
+    elif case == "tile_boundary":
+        # Half the points in the last cell of a tile, the first of the
+        # next and the grid's last cell; the rest at random.
+        edge = np.array([tile - 1, tile, nx * ny - 1])
+        cells = edge[rng.integers(0, 3, (B, N // 2))]
+        pts[:, : N // 2, 0], pts[:, : N // 2, 1] = _in_cells(rng, cells)
+        pts[:, : N // 2, 2] = rng.uniform(-2.5, 0.5, (B, N // 2))
+        mask[:, : N // 2] = True
     return pts, mask
 
 
@@ -65,7 +94,8 @@ def _weights(rng):
 
 
 @pytest.mark.parametrize("case",
-                         ["random", "all_invalid", "one_cell", "cell_edges"])
+                         ["random", "all_invalid", "one_cell", "cell_edges",
+                          "dense_tile", "tile_boundary"])
 def test_plain_matches_pallas_kernel(case):
     rng = np.random.default_rng(1)
     pts, mask = _cloud(case, rng)
@@ -96,10 +126,41 @@ def test_plain_matches_pallas_kernel(case):
         assert not nonempty.any()
     if case == "one_cell":
         assert occupied.sum(-1).tolist() == [1, 1]
+    if case == "dense_tile":
+        tile = ek.TILE_CELLS
+        assert not occupied[0, :tile].any() and not occupied[:, 2 * tile:].any()
+        assert occupied[1].sum() == 1
+        assert (cell < 64 * 64).sum(-1).min() > ek.KEYS_PER_PASS
+    if case == "tile_boundary":
+        for c in (ek.TILE_CELLS - 1, ek.TILE_CELLS, 64 * 64 - 1):
+            assert occupied[:, c].all()
 
     # Values: within the JAX kernel's routing error, max(BIG) * 2^-15.
     atol = float(_big(w, t, GEO["pc_range"]).max()) * 2.0 ** -15
     np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_wrapper_refuses_what_the_kernels_cannot():
+    rng = np.random.default_rng(4)
+    pts, mask = _cloud("random", rng)
+    w, t = (torch.from_numpy(a) for a in _weights(rng))
+    p, m = torch.from_numpy(pts), torch.from_numpy(mask)
+    # A contiguous view one float into a buffer: not 16-byte aligned.
+    shifted = torch.zeros(pts.size + 1)[1:].view(pts.shape)
+    shifted.copy_(p)
+    for bad in (lambda: ek.pillar_canvas_fused(shifted, m, w, t, **GEO),
+                lambda: ek.pillar_canvas_fused(p, m.to(torch.uint8), w, t,
+                                               **GEO),
+                lambda: ek.pillar_canvas_fused(p, m.float(), w, t, **GEO),
+                lambda: ek.pillar_canvas_fused(
+                    p, m.t().contiguous().t(), w, t, **GEO)):
+        with pytest.raises(ValueError):
+            bad()
+    # The encoder module hands the wrapper a bool mask whatever it got.
+    enc = FusedPillarEncoder(num_filters=C, **GEO).eval()
+    with torch.no_grad():
+        torch.testing.assert_close(enc(p, m.to(torch.uint8)), enc(p, m),
+                                   rtol=0, atol=0)
 
 
 def _jax_variables(rng, enc, pts, mask):

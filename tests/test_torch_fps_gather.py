@@ -91,6 +91,38 @@ def test_fps_equals_pallas_xla_and_numpy(case):
         assert len(set(got[0].tolist())) == 20
 
 
+@pytest.mark.parametrize("case", FPS_CASES)
+def test_fps_gather_equals_pallas_picks_and_their_rows(case):
+    """``fps_gather``: the picks of JAX ``fps_pallas`` and, bit for bit,
+    the picked points' xyz and mask (``take_along_axis`` of the picks)."""
+    pts, mask, m = _fps_case(case)
+    idx, new_xyz, new_mask = fps_mod.fps_gather(_t(pts), _t(mask), m)
+    assert idx.dtype == torch.int32 and idx.shape == (len(pts), m)
+    assert new_xyz.dtype == torch.float32 and new_xyz.shape == (len(pts), m,
+                                                                 3)
+    assert new_mask.dtype == torch.bool and new_mask.shape == (len(pts), m)
+    pallas = np.asarray(fps_pallas(jnp.asarray(pts), jnp.asarray(mask), m,
+                                   interpret=True))
+    np.testing.assert_array_equal(idx.numpy(), pallas)
+    want_xyz = np.take_along_axis(pts, pallas[..., None].astype(np.int64),
+                                  axis=1)
+    np.testing.assert_array_equal(new_xyz.numpy().view(np.int32),
+                                  want_xyz.view(np.int32))
+    np.testing.assert_array_equal(new_mask.numpy(),
+                                  np.take_along_axis(mask, pallas, axis=1))
+
+
+def test_fps_gather_refuses_points_that_require_grad():
+    pts, mask, m = _fps_case("random")
+    p = _t(pts).requires_grad_()
+    with pytest.raises(ValueError, match="gradient"):
+        fps_mod.fps_gather(p, _t(mask), m)
+    for bad in (lambda: fps_mod.fps_gather(_t(pts), _t(mask).int(), m),
+                lambda: fps_mod.fps_gather(_t(pts), _t(mask), 0)):
+        with pytest.raises(ValueError):
+            bad()
+
+
 def test_fps_takes_leading_dims_and_refuses_what_the_kernel_cannot():
     pts, mask, m = _fps_case("random")
     four = np.stack([pts, pts[::-1]])                # (2, 3, N, 3)

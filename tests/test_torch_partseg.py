@@ -130,6 +130,40 @@ def test_masked_max_matches_jax():
     assert not got[2].any()
 
 
+@pytest.mark.parametrize("features", [0, 5])
+def test_set_abstraction_matches_flax(features):
+    """One set abstraction through the port's path (``fps_gather``: the
+    picks with their xyz and mask, then ball query, grouping, shared MLP,
+    max) against the JAX module, eval mode: the centres and their mask
+    exactly, the features to 1e-5."""
+    rng = np.random.default_rng(features)
+    b, n = 2, 256
+    xyz = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    mask = rng.random((b, n)) > 0.2
+    feats = (rng.normal(size=(b, n, features)).astype(np.float32)
+             if features else None)
+    args = dict(num_samples=64, radii=(0.5,), num_neighbors=(16,),
+                mlps=((16, 24),))
+    jsa = jax_pointnet2.SetAbstraction(**args)
+    jin = (jnp.asarray(xyz), None if feats is None else jnp.asarray(feats),
+           jnp.asarray(mask))
+    v = _randomize_bn(rng, jax.jit(jsa.init)(jax.random.PRNGKey(0), *jin))
+    want = jax.jit(jsa.apply)(v, *jin)
+    flat = {**_flat(v["params"], "params", "SetAbstraction_0/"),
+            **_flat(v["batch_stats"], "batch_stats", "SetAbstraction_0/")}
+    port = lisec_tpu_torch.models.pointnet2.SetAbstraction(features, **args)
+    port.load_state_dict({k[len("sa.0."):]: t for k, t in
+                          convert_flax_arrays(flat).items()}, strict=True)
+    port.eval()
+    with torch.no_grad():
+        got = port(_t(xyz), None if feats is None else _t(feats), _t(mask))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    # f32 on both sides; the MLP's sums run in another order: 1e-5.
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-5, atol=1e-5)
+
+
 # -- the network ------------------------------------------------------------
 
 @pytest.mark.parametrize("msg", [False, True])
