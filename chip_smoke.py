@@ -60,16 +60,33 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    with dropout made the identity, a short ``train(cfg)``; the predict by
    stage, the train step by part, every point-kernel call (FPS beside its
    round floor: its block reductions and barriers alone);
-8. list under ``torch.profiler`` what ``pillar_canvas_fused``,
+8. range-image segmentation (``configs/rangeseg_fixture_conv.yaml`` at
+   full width: 64 x 2048 image, widths 32/64/128/256, bf16, 131,072-point
+   budget, seed-initialised weights, SemanticKITTI-like scans of 16,000
+   and 120,000 points): the projection's ``segment_paint`` and the kNN
+   refinement's ``spread_accumulate`` (K = 1, with and without its map,
+   and at the table's unpadded width) against their plain versions on
+   the calls of batch-8 predicts and of edge clouds (all masked, 1,000
+   points in one pixel, min-range ties, points beyond the field of
+   view), bit for bit; predict through ``infer`` at batch 8 (1 paint and
+   1 spread launch, nothing else), the kernel route against the plain
+   route (point labels, pixel labels, the range image equal);
+   ``rangeseg_tiny`` on the card against the CPU; train steps at batch 8
+   (adamw, onecycle, clip 10, rotate_z; 1 paint a step) held against the
+   plain route, a short ``train(cfg)``; the predict at batch 8 and 1 at
+   both densities by stage, the train step by part, the paint and spread
+   calls;
+9. list under ``torch.profiler`` what ``pillar_canvas_fused``,
    ``fps_gather``, ``scatter_rows``, ``segment_paint``, ``gather_rows``,
    the grouping and ``spread_accumulate`` calls run (the outputs' and
-   scratch's allocation and the kernels' own launches, nothing else),
+   scratch's allocation and the kernels' own launches, nothing else;
+   the paint and the spread also at the range-seg predict's shapes),
    then take the device time of every timed call of the encoder, FPS,
    the paint, the scatter, the gathers and the spreads of a batch-8
-   SECOND predict, by kernel (after the timed phases, so that no trace
-   touches them);
-9. print the ``{"kernels": [...]}`` line, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+   SECOND predict and of the range-seg predicts, by kernel (after the
+   timed phases, so that no trace touches them);
+10. print the ``{"kernels": [...]}`` line, the card's name and power
+    limit, and last ``{"ok": true, "device": {...}}``.
 
 Every comparison on the card runs with TF32 off for matrix products and
 convolutions.
@@ -540,13 +557,14 @@ def swapped_segment_ops(paint, unpaint, spread):
     ``spread_accumulate`` in the modules that call them, here only: the
     package has no switch on the card."""
     from lisec_tpu_torch.models import pillar_encoder
-    from lisec_tpu_torch.ops import scatter, sparse_conv, voxelize
+    from lisec_tpu_torch.ops import (knn_refine, range_proj, scatter,
+                                     sparse_conv, voxelize)
     from lisec_tpu_torch.training import assigner
     new = {"segment_paint": paint, "segment_unpaint": unpaint,
            "spread_accumulate": spread}
     saved = [(mod, name, getattr(mod, name))
              for mod in (pillar_encoder, scatter, assigner, voxelize,
-                         sparse_conv)
+                         sparse_conv, range_proj, knn_refine)
              for name in new if hasattr(mod, name)]
     for mod, name, _ in saved:
         setattr(mod, name, new[name])
@@ -960,13 +978,41 @@ def paint_call_row(vals, ids, nc, num_max, split):
     return row
 
 
+@contextlib.contextmanager
+def recorded_segment_calls(calls):
+    """Record what the paint, unpaint and spread wrappers are handed, by
+    kernel, in the dict ``calls`` (values detached), while they run as
+    they are."""
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    for k in ("segment_paint", "segment_unpaint", "spread_accumulate"):
+        calls[k] = []
+
+    def rec_paint(vals, ids, *, num_cells, num_max, split=None):
+        calls["segment_paint"].append((vals.detach(), ids, num_cells,
+                                       num_max, split))
+        return sp.segment_paint(vals, ids, num_cells=num_cells,
+                                num_max=num_max, split=split)
+
+    def rec_unpaint(table, ids):
+        calls["segment_unpaint"].append((table.detach(), ids))
+        return su.segment_unpaint(table, ids)
+
+    def rec_spread(vals, targets, *, num_out, sources=None):
+        calls["spread_accumulate"].append((vals.detach(), targets, num_out,
+                                           sources))
+        return sa.spread_accumulate(vals, targets, num_out=num_out,
+                                    sources=sources)
+    with swapped_segment_ops(rec_paint, rec_unpaint, rec_spread):
+        yield
+
+
 def phase_train_timing(name, pipe, cfg, batch):
     """The train step of config ``name`` and its parts at batch 4, and
     the kernels on the very tensors one train step hands them."""
     import torch
-    from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
-    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     b = cfg.train.batch_size
     with torch.enable_grad():
         ms_step = cuda_ms(lambda: pipe.train_step(batch), iters=5)
@@ -1004,26 +1050,8 @@ def phase_train_timing(name, pipe, cfg, batch):
          **{f"{k}_ms": v for k, v in parts.items()})
 
     # Record what one forward and backward hands the wrappers.
-    calls = {"segment_paint": [], "segment_unpaint": [],
-             "spread_accumulate": []}
-
-    def rec_paint(vals, ids, *, num_cells, num_max, split=None):
-        calls["segment_paint"].append((vals.detach(), ids, num_cells,
-                                       num_max, split))
-        return sp.segment_paint(vals, ids, num_cells=num_cells,
-                                num_max=num_max, split=split)
-
-    def rec_unpaint(table, ids):
-        calls["segment_unpaint"].append((table.detach(), ids))
-        return su.segment_unpaint(table, ids)
-
-    def rec_spread(vals, targets, *, num_out, sources=None):
-        calls["spread_accumulate"].append((vals.detach(), targets, num_out,
-                                           sources))
-        return sa.spread_accumulate(vals, targets, num_out=num_out,
-                                    sources=sources)
-
-    with swapped_segment_ops(rec_paint, rec_unpaint, rec_spread):
+    calls = {}
+    with recorded_segment_calls(calls):
         loss_and_grads(pipe, batch)
     rows = {"spread_accumulate": [spread_call_row(*call) for call
                                   in calls["spread_accumulate"]]}
@@ -1535,9 +1563,6 @@ def phase_second_timing(pipe, cfg):
     calls. Returns the batch-8 spread and paint calls."""
     import torch
     from lisec_tpu_torch.api import infer
-    from lisec_tpu_torch.ops.cuda import segment_paint as sp
-    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
-    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     rows = {}
     for b in (1, 8):
         batch, _ = scene_batch(cfg, b)
@@ -1557,23 +1582,13 @@ def phase_second_timing(pipe, cfg):
              device_resident_ms_at_threshold_0=ms_dev_nms,
              stages_ms=stages)
 
-        calls, paints = [], []
-
-        def rec_spread(vals, targets, *, num_out, sources=None):
-            calls.append((vals, targets, num_out, sources))
-            return sa.spread_accumulate(vals, targets, num_out=num_out,
-                                        sources=sources)
-
-        def rec_paint(vals, ids, *, num_cells, num_max, split=None):
-            paints.append((vals, ids, num_cells, num_max, split))
-            return sp.segment_paint(vals, ids, num_cells=num_cells,
-                                    num_max=num_max, split=split)
-        with swapped_segment_ops(rec_paint, su.segment_unpaint,
-                                 rec_spread), torch.no_grad():
+        calls = {}
+        with recorded_segment_calls(calls), torch.no_grad():
             pipe.predict(dev)
-        rows[b] = ([spread_call_row(*call, timed=b == 8) for call in calls],
-                   [paint_call_row(*call) for call in paints] if b == 8
-                   else [])
+        rows[b] = ([spread_call_row(*call, timed=b == 8)
+                    for call in calls["spread_accumulate"]],
+                   [paint_call_row(*call) for call in calls["segment_paint"]]
+                   if b == 8 else [])
         for kernel, per_call in zip(("spread_accumulate", "segment_paint"),
                                     rows[b]):
             for i, call in enumerate(per_call):
@@ -2388,6 +2403,475 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
     return rows
 
 
+# -- range segmentation: the paint and spread on new callers ----------------
+
+RANGESEG_CFG = os.path.join(ROOT, "configs", "rangeseg_fixture_conv.yaml")
+RANGESEG_TINY_CFG = os.path.join(ROOT, "configs", "rangeseg_tiny.yaml")
+RANGESEG_LAUNCHES_PER_PREDICT = {
+    "pillar_canvas_fused": 0, "segment_paint": 1, "segment_unpaint": 0,
+    "spread_accumulate": 1, "fps": 0, "gather_rows": 0, "scatter_rows": 0}
+RANGESEG_LAUNCHES_PER_TRAIN_STEP = {**RANGESEG_LAUNCHES_PER_PREDICT,
+                                    "spread_accumulate": 0}
+# Points a cloud: the fixture's, and about one HDL-64E scan.
+RANGESEG_DENSITIES = (16000, 120000)
+
+
+def rangeseg_config(num_steps=TRAIN_STEPS, log_every=1):
+    """The full-width range-seg config; the overrides are no widths
+    (checkpoints are not ported; augmentation, rotate_z, stays on)."""
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    return apply_overrides(load_config(RANGESEG_CFG), [
+        'train.ckpt_dir=""', f"train.num_steps={num_steps}",
+        f"train.log_every={log_every}"])
+
+
+def semantic_batch(cfg, b, num_points=16000, seed0=40_000):
+    """``b`` SemanticKITTI-like scans of ``num_points`` points (seeds
+    seed0...; the fixture's held-out split at 16,000), padded."""
+    from lisec_tpu_torch.data.collate import collate, pad_to_budget
+    from lisec_tpu_torch.data.fixtures import make_semantic_scene
+    return collate([pad_to_budget(make_semantic_scene(
+        seed0 + i, num_points=num_points,
+        num_classes=cfg.data.num_classes), cfg.budget) for i in range(b)])
+
+
+def rangeseg_edge_batch(cfg):
+    """Eight edge clouds at the full budget, two of each: every point
+    masked; one pixel holding 1,000 points (far beyond the refinement's
+    fill depth of 32); min-range ties (points repeated, and points of one
+    range in one pixel); points beyond the field of view and on the yaw
+    seam, which the projection clamps."""
+    import numpy as np
+    batch = semantic_batch(cfg, 8, num_points=16000, seed0=77)
+    pts, mask = batch["points"], batch["point_mask"]
+    rng = np.random.default_rng(11)
+    mask[0:2] = False
+    for b in (2, 3):
+        pts[b, 100:1100] = pts[b, 50] * (1 + 1e-7 * rng.random((1000, 1)))
+    for b in (4, 5):
+        pts[b, 2000:6000] = pts[b, 0:4000]
+        pts[b, 7000:7100, :3] = pts[b, 6900, :3]
+    for b in (6, 7):
+        n = 4000
+        yaw = rng.choice([np.pi, -np.pi, 0.0], n)
+        pitch = np.deg2rad(rng.choice([30.0, -60.0, 3.0, -25.0, 89.0], n))
+        r = rng.uniform(3, 70, n)
+        pts[b, :n, 0] = r * np.cos(pitch) * np.cos(yaw)
+        pts[b, :n, 1] = r * np.cos(pitch) * np.sin(yaw)
+        pts[b, :n, 2] = r * np.sin(pitch)
+    return batch
+
+
+def phase_rangeseg_kernel_check(pipe, cfg):
+    """The paint and the spread at the range-seg path's shapes on the card
+    against their plain versions, bit for bit and twice identical: the
+    calls of a batch-8 predict at both densities and of the edge clouds;
+    the spread also without its inverse map and at the table's unpadded
+    width (2 S^2, 50). Returns the largest |difference| for each."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    worst = {"segment_paint": 0.0, "spread_accumulate": 0.0}
+    inputs = [(f"predict_{n}_points", semantic_batch(cfg, 8, n))
+              for n in RANGESEG_DENSITIES]
+    inputs.append(("edge_clouds", rangeseg_edge_batch(cfg)))
+    for name, batch in inputs:
+        calls = {}
+        with recorded_segment_calls(calls), torch.no_grad():
+            pipe.predict(pipe.device_batch(batch))
+        counts = {k: len(v) for k, v in calls.items()}
+        if counts != {"segment_paint": 1, "segment_unpaint": 0,
+                      "spread_accumulate": 1}:
+            raise AssertionError(f"rangeseg {name}: calls {counts}")
+        vals, ids, nc, num_max, split = calls["segment_paint"][0]
+        got = sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max)
+        again = sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max)
+        ref = sp.segment_paint_reference(vals, ids, num_cells=nc,
+                                         num_max=num_max)
+        worst["segment_paint"] = max(worst["segment_paint"],
+                                     float((got - ref).abs().max()))
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            raise AssertionError(f"segment_paint {name}: differs from the "
+                                 "plain version or between two calls")
+        vals, targets, n_out, sources = calls["spread_accumulate"][0]
+        ref = sa.spread_accumulate_reference(vals, targets, num_out=n_out)
+        raw = 2 * pipe.knn_window ** 2
+        unpadded = vals[..., :raw].contiguous()
+        for what, got in (
+                ("given map", sa.spread_accumulate(
+                    vals, targets, num_out=n_out, sources=sources)),
+                ("built map", sa.spread_accumulate(vals, targets,
+                                                   num_out=n_out)),
+                (f"C = {raw}", torch.nn.functional.pad(sa.spread_accumulate(
+                    unpadded, targets, num_out=n_out, sources=sources),
+                    (0, vals.shape[-1] - raw)))):
+            worst["spread_accumulate"] = max(
+                worst["spread_accumulate"], float((got - ref).abs().max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"spread_accumulate {name} ({what}): differs from the "
+                    "plain version by "
+                    f"{float((got - ref).abs().max())}")
+        emit("kernel_check", kernel="segment_paint+spread_accumulate",
+             inputs=f"rangeseg {name}",
+             paint_rows=list(calls["segment_paint"][0][0].shape),
+             paint_rows_placed=int((ids < nc).sum()),
+             spread_rows=list(vals.shape),
+             spread_rows_delivered=int((targets >= 0).sum()),
+             result="bit-equal, twice identical; the spread with and "
+                    f"without its map and at C = {raw}")
+    return worst
+
+
+def rangeseg_images(pipe, batch):
+    """The projection of a batch and the predict's outputs."""
+    import torch
+    dev = pipe.device_batch(batch)
+    with torch.no_grad():
+        proj = pipe._project(dev["points"], dev["point_mask"])
+        out = pipe.predict(dev)
+    return proj, out
+
+
+def phase_rangeseg_serving(pipe, cfg):
+    """Full-width range-seg predict at batch 8 through ``infer`` at both
+    densities: launches (1 paint and 1 spread, nothing else), outputs,
+    and the kernel route against the plain route on the card (point
+    labels, pixel labels and the range image equal)."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    for n in RANGESEG_DENSITIES:
+        batch = semantic_batch(cfg, 8, n)
+        zero_all_launches()
+        out = infer(pipe, batch)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        if launches != RANGESEG_LAUNCHES_PER_PREDICT:
+            raise AssertionError(f"rangeseg predict launches {launches}, "
+                                 f"expected {RANGESEG_LAUNCHES_PER_PREDICT}")
+        labels, pix = out["labels"], out["pixel_labels"]
+        if labels.shape != (8, cfg.budget.max_points) \
+                or pix.shape != (8, pipe.height, pipe.width) \
+                or labels.dtype != torch.int32 or labels.min() < 0 \
+                or labels.max() >= pipe.num_classes:
+            raise AssertionError(f"rangeseg outputs {tuple(labels.shape)} "
+                                 f"{tuple(pix.shape)}")
+        torch.backends.cudnn.deterministic = True
+        proj_k, out_k = rangeseg_images(pipe, batch)
+        before = all_launches()
+        with plain_segment_ops():
+            proj_p, out_p = rangeseg_images(pipe, batch)
+        torch.backends.cudnn.deterministic = False
+        if all_launches() != before:
+            raise AssertionError("the plain route launched a kernel")
+        for k in ("labels", "pixel_labels"):
+            if not torch.equal(out_k[k], out_p[k]):
+                raise AssertionError(f"rangeseg {n}: {k} differ between "
+                                     "the kernel and plain routes")
+        for k in proj_k._fields:
+            if not torch.equal(getattr(proj_k, k), getattr(proj_p, k)):
+                raise AssertionError(f"rangeseg {n}: projection {k} differs")
+        mask = torch.as_tensor(batch["point_mask"], device=labels.device)
+        emit("rangeseg_main_path", config="rangeseg_fixture_conv", batch=8,
+             points_per_cloud=n, launches=launches,
+             occupied_pixels_per_cloud=proj_k.image_mask.flatten(1).sum(
+                 1).tolist(),
+             refined_labels_changed=int(((out_k["labels"] != torch.gather(
+                 pix.flatten(1), 1, proj_k.pixel_pix.long())) & mask).sum()),
+             labels_equal_to_plain=True, range_image_equal_to_plain=True)
+    return launches
+
+
+def phase_rangeseg_tiny_vs_cpu():
+    """``rangeseg_tiny`` (seed-initialised) on the card against the CPU:
+    point labels equal but for under 0.1% of the valid points, each
+    difference explained by a pixel id that moved (CUDA's ``atan2f`` is
+    not the C library's) or by pixel logits whose top two lie within 1e-5
+    of the largest; pixel labels equal where neither holds."""
+    import torch
+    from lisec_tpu_torch.api import build_model, infer, load_config
+    from lisec_tpu_torch.data.collate import make_batches
+    cfg = load_config(RANGESEG_TINY_CFG)
+    outs, projs, logits = [], [], []
+    for d in ("cuda", "cpu"):
+        pipe = build_model(cfg, d)
+        batch = next(make_batches(pipe.make_dataset("train"), cfg.budget,
+                                  cfg.train.batch_size, shuffle=False))
+        outs.append({k: v.cpu() for k, v in infer(pipe, batch, d).items()})
+        dev = pipe.device_batch(batch)
+        with torch.no_grad():
+            proj = pipe._project(dev["points"], dev["point_mask"])
+            logits.append(pipe.model(proj.image).cpu())
+        projs.append(proj)
+    moved = (projs[0].pixel_pix.cpu() != projs[1].pixel_pix).sum().item()
+    image_differs = ~(projs[0].image.cpu() == projs[1].image).all(-1)
+    top2 = torch.topk(logits[1], 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-5 * logits[1].abs().max()
+    pix_differ = outs[0]["pixel_labels"] != outs[1]["pixel_labels"]
+    if (pix_differ & ~near & ~image_differs).any():
+        raise AssertionError("rangeseg_tiny cuda vs cpu: pixel labels "
+                             "differ where neither image nor logits explain")
+    valid = torch.as_tensor(batch["point_mask"])
+    differ = (outs[0]["labels"] != outs[1]["labels"]) & valid
+    if differ.sum() >= 1e-3 * valid.sum() or (differ.any() and not (
+            moved or pix_differ.any())):
+        raise AssertionError(f"rangeseg_tiny cuda vs cpu: {int(differ.sum())}"
+                             f" of {int(valid.sum())} point labels differ")
+    emit("tiny_vs_cpu", config="rangeseg_tiny",
+         point_labels_differing=int(differ.sum()), valid_points=int(
+             valid.sum()), pixel_ids_moved=moved,
+         pixels_whose_image_differs=int(image_differs.sum()),
+         pixel_labels_differing=int(pix_differ.sum()),
+         pixels_with_top_two_within_1e_5=int(near.sum()),
+         logits_max_abs_diff=float((logits[0] - logits[1]).abs().max()),
+         logits_max_abs=float(logits[1].abs().max()))
+
+
+def rangeseg_loss_and_grads(pipe, batch):
+    import torch
+    pipe.model.train()
+    pipe.optimizer.zero_grad()
+    with torch.enable_grad():
+        loss, aux = pipe.loss(pipe.device_batch(batch))
+        loss.backward()
+    torch.cuda.synchronize()
+    return (loss.detach(), aux["acc"].detach(),
+            {n: p.grad.clone() for n, p in pipe.model.named_parameters()})
+
+
+def phase_rangeseg_train():
+    """Full-width range-seg train steps at batch 8 (adamw, onecycle, clip
+    10, rotate_z augmentation) through ``train_step``: launches (1 paint a
+    step, nothing else), finite metrics, every tensor moved; the first
+    step's loss (1e-5) and gradients (1e-3 of each L2 norm) against the
+    plain route; then a short ``lisec_tpu_torch.train`` whose loss falls."""
+    import torch
+    import lisec_tpu_torch
+    from lisec_tpu_torch.api import build_model
+    from lisec_tpu_torch.data.collate import make_batches
+    cfg = rangeseg_config()
+    pipe = build_model(cfg)
+    pipe.init_state(cfg.train.seed)
+    batches = make_batches(pipe.make_dataset("train"), cfg.budget,
+                           cfg.train.batch_size, shuffle=True,
+                           seed=cfg.train.seed,
+                           augment_fn=pipe.augment_fn("train"))
+    first = next(batches)
+    start = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+    zero_all_launches()
+    with torch.enable_grad():
+        auxes = [pipe.train_step(first if i == 0 else next(batches))
+                 for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = {k: v * TRAIN_STEPS
+            for k, v in RANGESEG_LAUNCHES_PER_TRAIN_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"rangeseg train launches {launches}, expected "
+                             f"{RANGESEG_LAUNCHES_PER_TRAIN_STEP} a step")
+    auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
+    for a in auxes:
+        if not all(v == v and abs(v) != float("inf") for v in a.values()):
+            raise AssertionError(f"rangeseg train step: non-finite {a}")
+    stuck = [k for k, v in pipe.model.state_dict().items()
+             if torch.equal(v, start[k]) or not torch.isfinite(v).all()]
+    if stuck:
+        raise AssertionError(f"rangeseg train step: unchanged or "
+                             f"non-finite {stuck}")
+    emit("train_path", config="rangeseg_fixture_conv",
+         batch=cfg.train.batch_size, steps=TRAIN_STEPS, launches=launches,
+         per_step=auxes, tensors_moved=len(start))
+
+    torch.backends.cudnn.deterministic = True
+    pipe.model.load_state_dict(start)
+    loss_k, acc_k, grads_k = rangeseg_loss_and_grads(pipe, first)
+    pipe.model.load_state_dict(start)
+    before = all_launches()
+    with plain_segment_ops():
+        loss_p, acc_p, grads_p = rangeseg_loss_and_grads(pipe, first)
+    torch.backends.cudnn.deterministic = False
+    if all_launches() != before:
+        raise AssertionError("the plain run launched a kernel")
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if rel_loss > 1e-5 or float(acc_k) != float(acc_p):
+        raise AssertionError(f"rangeseg loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}")
+    worst, worst_name = 0.0, ""
+    for pname, gk in grads_k.items():
+        rel = float((gk - grads_p[pname]).norm()
+                    / grads_p[pname].norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, pname
+    if worst > 1e-3:
+        raise AssertionError(f"rangeseg gradient of {worst_name}: relative "
+                             f"L2 difference {worst} from the plain run")
+    emit("train_vs_plain", config="rangeseg_fixture_conv",
+         loss=float(loss_k), plain_loss=float(loss_p),
+         loss_rel_diff=rel_loss, acc=float(acc_k), worst_grad_rel_l2=worst,
+         worst_grad=worst_name, gradients=len(grads_k))
+
+    short = rangeseg_config(8, log_every=2)
+    with torch.enable_grad():
+        trained, history = lisec_tpu_torch.train(short, progress=False)
+    torch.cuda.synchronize()
+    if len(history) != 5 or trained.step != 8 or not all(
+            v == v and abs(v) != float("inf")
+            for rec in history for v in rec.values()):
+        raise AssertionError(f"rangeseg train(): {history}")
+    if not (history[-1]["loss"] + history[-2]["loss"]) / 2 \
+            < history[0]["loss"]:
+        raise AssertionError(f"rangeseg train() loss did not fall: "
+                             f"{[r['loss'] for r in history]}")
+    emit("train_entry_point", config="rangeseg_fixture_conv", steps=8,
+         loss_per_logged_step={r["step"]: r["loss"] for r in history},
+         lr={r["step"]: r["lr"] for r in history})
+    pipe.model.load_state_dict(start)
+    return pipe, cfg, first, launches
+
+
+def rangeseg_stage_ms(pipe, dev, runs=5):
+    """Mean ms of a device-resident range-seg predict's stages, by events
+    around the pipeline's own calls (wrapped here only): the projection
+    (its paint call also on its own), the network, and the refinement's
+    table, sort, delivery (its spread call also on its own), fill and
+    vote; ``rest`` is the argmax, the refinement's fallback and its
+    inverse permutation."""
+    import torch
+    from lisec_tpu_torch.ops import knn_refine, range_proj
+    timer = EventTimer()
+    functions = [(range_proj, "segment_paint", "projection_paint"),
+                 (knn_refine, "spread_accumulate", "delivery_spread"),
+                 (knn_refine, "_build_table", "table"),
+                 (knn_refine, "_sort_points", "sort"),
+                 (knn_refine, "_deliver_rows", "delivery"),
+                 (knn_refine, "_forward_fill", "fill"),
+                 (knn_refine, "_vote", "vote")]
+    wrapped = [(pipe, "_project", "projection"),
+               (pipe.model, "forward", "network")]
+    saved = [(mod, f, getattr(mod, f)) for mod, f, _ in functions]
+
+    def run():
+        with torch.no_grad():
+            pipe.predict(dev)
+    run()
+    run()
+    try:
+        for obj, attr, name in wrapped:
+            setattr(obj, attr, timer.wrap(name, getattr(obj, attr)))
+        for (mod, f, fn), (_, _, name) in zip(saved, functions):
+            setattr(mod, f, timer.wrap(name, fn))
+        total = cuda_ms(run, iters=runs, warmup=0)
+    finally:
+        for obj, attr, _ in wrapped:
+            delattr(obj, attr)
+        for mod, f, fn in saved:
+            setattr(mod, f, fn)
+    ms = timer.ms_per_run(runs)
+    ms["rest"] = total - sum(ms[k] for k in (
+        "projection", "network", "table", "sort", "delivery", "fill",
+        "vote"))
+    ms["predict"] = total
+    return ms
+
+
+def phase_rangeseg_timing(serve_pipe, cfg, train_pipe, train_batch):
+    """Range-seg predict at batch 8 and 1 at both densities (from host
+    numpy, device-resident, by stage), the batch-8 train step and its
+    parts, and the paint and spread calls of a batch-8 predict at both
+    densities and of a train step on the tensors the path hands them.
+    Returns (paint rows, spread rows) of the fixture-density predict and
+    the train step's paint row."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    from lisec_tpu_torch.training.losses import cross_entropy, lovasz_softmax
+    rows = {}
+    for n in RANGESEG_DENSITIES:
+        for b in (8, 1):
+            batch = semantic_batch(cfg, b, n)
+            ms = cuda_ms(lambda: infer(serve_pipe, batch), iters=10)
+            dev = serve_pipe.device_batch(batch)
+            with torch.no_grad():
+                ms_dev = cuda_ms(lambda: serve_pipe.predict(dev), iters=10)
+            emit("rangeseg_predict", config="rangeseg_fixture_conv",
+                 batch=b, points_per_cloud=n, ms_per_batch=ms,
+                 clouds_per_s=b * 1e3 / ms, device_resident_ms=ms_dev,
+                 device_resident_clouds_per_s=b * 1e3 / ms_dev,
+                 stages_ms=rangeseg_stage_ms(serve_pipe, dev))
+        calls = {}
+        with recorded_segment_calls(calls), torch.no_grad():
+            serve_pipe.predict(serve_pipe.device_batch(semantic_batch(
+                cfg, 8, n)))
+        paint = paint_call_row(*calls["segment_paint"][0])
+        vals, targets, n_out, sources = calls["spread_accumulate"][0]
+        spread = spread_call_row(vals, targets, n_out, sources, timed=True)
+        # The same call on the table's unpadded width, whose rows the
+        # kernel moves one float a lane, not in 16-byte pieces.
+        unpadded = vals[..., :2 * serve_pipe.knn_window ** 2].contiguous()
+        spread["unpadded_ms"] = cuda_ms(lambda: sa.spread_accumulate(
+            unpadded, targets, num_out=n_out, sources=sources), 20)
+        spread["unpadded_bound_ms"] = spread_bound(unpadded, targets,
+                                                   n_out)[0]
+        for kernel, row in (("segment_paint", paint),
+                            ("spread_accumulate", spread)):
+            emit("rangeseg_kernel", kernel=kernel, points_per_cloud=n,
+                 batch=8, **row)
+        rows[n] = ([paint], [spread])
+
+    pipe, b = train_pipe, train_pipe.cfg.train.batch_size
+    with torch.enable_grad():
+        ms_step = cuda_ms(lambda: pipe.train_step(train_batch), iters=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pipe.train_step(train_batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        dev = pipe.device_batch(train_batch)
+        parts = dict.fromkeys(("forward", "loss", "backward", "optimizer"),
+                              0.0)
+        for it in range(7):                          # 2 warm-up + 5
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            pipe.model.train()
+            pipe.optimizer.zero_grad()
+            ev[0].record()
+            proj = pipe._project(dev["points"], dev["point_mask"])
+            logits = pipe.model(proj.image)
+            ev[1].record()
+            labels = pipe._label_image(proj, dev["point_labels"])
+            pix_mask = proj.image_mask & (labels >= 0)
+            loss = cross_entropy(logits, labels, mask=pix_mask) \
+                + pipe.lovasz_weight * lovasz_softmax(
+                    torch.softmax(logits, -1), labels,
+                    num_classes=pipe.num_classes, mask=pix_mask)
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            pipe.optimizer.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            if it >= 2:
+                for i, k in enumerate(parts):
+                    parts[k] += ev[i].elapsed_time(ev[i + 1]) / 5
+        torch.cuda.reset_peak_memory_stats()
+        pipe.train_step(train_batch)
+        peak = torch.cuda.max_memory_allocated()
+    emit("rangeseg_train_step", config="rangeseg_fixture_conv", batch=b,
+         ms_per_step=ms_step, clouds_per_s=b * 1e3 / ms_step,
+         host_clock_ms_per_step=host_ms,
+         host_clock_clouds_per_s=b * 1e3 / host_ms,
+         peak_device_memory_gb=peak / 1e9,
+         **{f"{k}_ms": v for k, v in parts.items()})
+    calls = {}
+    with recorded_segment_calls(calls):
+        rangeseg_loss_and_grads(pipe, train_batch)
+    train_paint = paint_call_row(*calls["segment_paint"][0])
+    emit("rangeseg_kernel", kernel="segment_paint", train_step=True,
+         batch=b, **train_paint)
+    return rows[RANGESEG_DENSITIES[0]], rows[RANGESEG_DENSITIES[1]], \
+        train_paint
+
+
 # What one call of each wrapper launches where the device-time phase
 # checks it, by kernel name.
 DEVICE_LAUNCHES = {
@@ -2442,7 +2926,8 @@ def phase_profile_listing():
     without (the invert and the accumulate, no memset), ``fps_gather`` at
     SA1's (one launch for the picks, their xyz and their mask) and
     ``pillar_canvas_fused`` at a batch-8 KITTI predict's (the cell and
-    canvas kernels, no sort, search, gather or memset)."""
+    canvas kernels, no sort, search, gather or memset), and the paint and
+    the spread at the range-seg predict's shapes (one launch each)."""
     import torch
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
     from lisec_tpu_torch.ops.cuda import fps as fk
@@ -2475,6 +2960,19 @@ def phase_profile_listing():
         8, 32768, geo, torch.Generator().manual_seed(5)))
     w = torch.randn((9, 64), generator=g, device="cuda")
     t = torch.randn((64,), generator=g, device="cuda")
+    # The range-seg predict's two calls: the projection's sum-only paint of
+    # 8-channel winner rows and the refinement's K = 1 delivery of 52
+    # channels to the first point of each occupied pixel, its map given.
+    hw = 64 * 2048
+    winner_rows = torch.randn((8, hw, 8), generator=g, device="cuda")
+    pixels = torch.sort(torch.randint(0, hw + 20000, (8, hw), generator=g,
+                                      device="cuda"), 1).values.to(
+        torch.int32)
+    window_rows = torch.randn((8, 1, hw, 52), generator=g, device="cuda")
+    firsts = torch.argsort(torch.rand((8, 1, hw), generator=g,
+                                      device="cuda"))
+    firsts = torch.where(firsts < hw // 4, firsts, -1).to(torch.int32)
+    first_of = inverse_map(firsts, hw)
     calls = {
         "fps_gather": (lambda: fk.fps_gather(cloud, cloud_mask, 512),
                        {"fps_reg_kernel": 1}),
@@ -2495,7 +2993,13 @@ def phase_profile_listing():
             {"spread_accumulate_kernel": 1}),
         "spread_accumulate_built_map": (lambda: sa.spread_accumulate(
             stream, targets, num_out=n),
-            {"spread_invert_kernel": 1, "spread_accumulate_kernel": 1})}
+            {"spread_invert_kernel": 1, "spread_accumulate_kernel": 1}),
+        "segment_paint_range_projection": (lambda: sp.segment_paint(
+            winner_rows, pixels, num_cells=hw, num_max=0),
+            {"segment_paint_kernel": 1}),
+        "spread_accumulate_knn_delivery": (lambda: sa.spread_accumulate(
+            window_rows, firsts, num_out=hw, sources=first_of),
+            {"spread_accumulate_kernel": 1})}
     for name, (call, want) in calls.items():
         ops, kernels = profiled(call, 5)
         labels = [kernel_label(k) for k, _ in kernels]
@@ -2570,6 +3074,15 @@ def main() -> int:
     fps_rows, gather_rows_, scatter_rows_ = phase_partseg_timing(
         partseg_pipe, partseg_cfg, *partseg_train[:3])
     partseg_train_launches = partseg_train[3]
+    rangeseg_cfg = rangeseg_config()
+    rangeseg_pipe = build_model(rangeseg_cfg)      # weights from seed 0
+    rangeseg_err = phase_rangeseg_kernel_check(rangeseg_pipe, rangeseg_cfg)
+    rangeseg_launches = phase_rangeseg_serving(rangeseg_pipe, rangeseg_cfg)
+    phase_rangeseg_tiny_vs_cpu()
+    rangeseg_train = phase_rangeseg_train()
+    rangeseg_fixture, rangeseg_scan, rangeseg_train_paint = \
+        phase_rangeseg_timing(rangeseg_pipe, rangeseg_cfg,
+                              rangeseg_train[0], rangeseg_train[2])
     phase_profile_listing()
     phase_device_times()
 
@@ -2600,6 +3113,21 @@ def main() -> int:
     # paint's library time stands only with its all-sum call. Their calls
     # in a SECOND train step stand beside them, and the paint's two calls
     # of a SECOND predict at batch 8.
+    # The paint's and the spread's calls of a range-seg predict at batch 8
+    # (fixture density and a scan's 120,000 points) and the paint's of a
+    # range-seg train step stand beside them too.
+    def rangeseg(name):
+        i = ("segment_paint", "spread_accumulate").index(name)
+        return {
+            "launches_per_rangeseg_predict": rangeseg_launches[name],
+            "launches_per_rangeseg_train_step":
+                rangeseg_train[3][name] / TRAIN_STEPS,
+            "rangeseg_max_abs_err": rangeseg_err[name],
+            "rangeseg_predict": rangeseg_fixture[i][0],
+            "rangeseg_predict_120k_points": rangeseg_scan[i][0],
+            **({"rangeseg_train_step": rangeseg_train_paint}
+               if i == 0 else {})}
+
     for mod in (sp, su):
         name = mod.KERNEL_INFO["name"]
         kernels.append({
@@ -2612,7 +3140,7 @@ def main() -> int:
             "calls": train_rows[name],
             "second_train_step": summed(second_train_rows[name]),
             **({"second_predict": summed(second_paints),
-                "second_predict_calls": second_paints}
+                "second_predict_calls": second_paints, **rangeseg(name)}
                if mod is sp else {})})
     # The spread kernel: the nine calls of one SECOND predict at batch 8
     # together; the nine of a train step at batch 4 beside them.
@@ -2623,7 +3151,8 @@ def main() -> int:
         "launches_per_predict": second_launches[name],
         "launches_per_train_step": second_train[3][name] / TRAIN_STEPS,
         "calls": second_calls,
-        "second_train_step": summed(second_train_rows[name])})
+        "second_train_step": summed(second_train_rows[name]),
+        **rangeseg(name)})
     # The point kernels: FPS and the gathers as the calls of one PointNet++
     # predict at batch 16 together, the scatters as the three of one train
     # step at batch 16 (the gathers' backward).

@@ -12,15 +12,19 @@ with the fused pillar-encoder kernel, PointPillars training
 (``configs/pointpillars_fixture_hard_conv.yaml``) with the segment paint
 and unpaint kernels, SECOND inference and training
 (``configs/second_kitti.yaml``, ``configs/second_fixture_conv.yaml``) with
-the spread-accumulate kernel under its sparse convs, and PointNet++ part
+the spread-accumulate kernel under its sparse convs, PointNet++ part
 segmentation, inference and training
 (``configs/pointnet2_partseg_fixture_conv.yaml``), with the
 farthest-point-sampling kernel and the row gather and ordered row
-scatter kernels under its grouping and interpolation. Every TPU kernel
-of the JAX package now has its CUDA counterpart. Checkpoints,
-data-parallel training, the detection augmentation and evaluation are
-not ported yet and raise ``NotImplementedError`` when a config asks for
-them. Public API::
+scatter kernels under its grouping and interpolation, and range-image
+segmentation on SemanticKITTI, inference and training
+(``configs/rangeseg_semantickitti.yaml``,
+``configs/rangeseg_fixture_conv.yaml``), whose range projection runs the
+segment paint kernel and whose kNN refinement runs the spread-accumulate
+kernel. Every TPU kernel of the JAX package has its CUDA counterpart.
+Checkpoints, data-parallel training, the detection augmentation and
+evaluation are not ported yet and raise ``NotImplementedError`` when a
+config asks for them. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")
     pipeline = lisec_tpu_torch.build_model(cfg)          # device="cuda"

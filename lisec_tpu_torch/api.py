@@ -54,7 +54,8 @@ def preprocess(cloud: np.ndarray, cfg: Config) -> Dict[str, np.ndarray]:
 def build_model(cfg: Config, device="cuda"):
     """Build the pipeline object for a config (registry lookup) on
     ``device``."""
-    from lisec_tpu_torch.pipelines import detection, partseg  # noqa: F401
+    from lisec_tpu_torch.pipelines import (  # noqa: F401
+        detection, partseg, rangeseg)
     from lisec_tpu_torch.registry import get_pipeline
     return get_pipeline(cfg.model.name)(cfg, device=device)
 

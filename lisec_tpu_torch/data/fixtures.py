@@ -1,13 +1,14 @@
 """Synthetic fixtures (copy of ``_unit_shape``, ``make_partseg_cloud``,
-``make_detection_scene``, ``_ray_box_t`` and ``make_detection_scene_hard``
-from ``lisec_tpu/data/fixtures.py``).
+``make_detection_scene``, ``_ray_box_t``, ``make_detection_scene_hard``
+and ``make_semantic_scene`` from ``lisec_tpu/data/fixtures.py``).
 
 Real datasets are not shipped, so training, the smoke run and the tests
-draw data from a seed: part-labelled shapes in the unit sphere, and
+draw data from a seed: part-labelled shapes in the unit sphere,
 lidar-like scenes of box-shaped clusters on ground clutter or ray-cast
-scenes with occlusion. The copy must reproduce the JAX package's arrays
-bit for bit (``tests/test_torch_pointpillars.py``,
-``tests/test_torch_partseg.py``).
+scenes with occlusion, and semantically labelled scans. The copy must
+reproduce the JAX package's arrays bit for bit
+(``tests/test_torch_pointpillars.py``, ``tests/test_torch_partseg.py``,
+``tests/test_torch_rangeseg.py``).
 """
 
 from __future__ import annotations
@@ -313,3 +314,27 @@ def make_detection_scene_hard(
         "gt_classes": np.asarray(classes, np.int32),
         "difficulty": difficulty,
     }
+
+
+def make_semantic_scene(
+    seed: int, *, num_points: int = 16000, num_classes: int = 20,
+) -> Dict[str, np.ndarray]:
+    """SemanticKITTI-like scene with geometry-correlated labels.
+
+    Label depends on height band + radial distance band, so a range-image
+    segmenter can learn it.
+    """
+    rng = np.random.default_rng(seed)
+    r = rng.exponential(18.0, num_points).clip(2.5, 75)
+    theta = rng.uniform(-np.pi, np.pi, num_points)
+    x = r * np.cos(theta)
+    y = r * np.sin(theta)
+    band = rng.integers(0, 3, num_points)
+    z = np.where(band == 0, rng.normal(-1.6, 0.05, num_points),
+                 np.where(band == 1, rng.uniform(-1.2, 0.5, num_points),
+                          rng.uniform(0.5, 2.5, num_points)))
+    pts = np.stack([x, y, z, rng.uniform(0, 1, num_points)], -1).astype(
+        np.float32)
+    rband = np.digitize(r, [10, 30]).astype(np.int64)
+    labels = (band * 3 + rband) % num_classes
+    return {"points": pts, "point_labels": labels.astype(np.int32)}

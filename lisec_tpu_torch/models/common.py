@@ -1,6 +1,7 @@
 """Shared NN blocks (port of ``lisec_tpu/models/common.py``): the
-detectors' NCHW ``ConvBNRelu``, and the point networks' ``SharedMLP``
-and ``masked_max`` over channels-last rows.
+detectors' and the range segmenter's NCHW ``ConvBNRelu`` and ``Conv``,
+and the point networks' ``SharedMLP`` and ``masked_max`` over
+channels-last rows.
 
 Parameters are stored in PyTorch's layouts; ``lisec_tpu_torch/weights.py``
 converts the flax ones. ``dtype`` is the compute dtype: inputs and
@@ -8,6 +9,8 @@ kernels are cast to it per layer, as flax does, and parameters stay f32.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,14 +20,38 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
 
 
-def pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """flax/XLA ``SAME`` padding of NCHW x: the extra row and column go
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride) -> torch.Tensor:
+    """flax/XLA ``SAME`` padding of NCHW x for a square kernel and a
+    stride that is one int or an (H, W) pair: the extra row and column go
     on the high side (a stride-2 3x3 conv on even H, W pads (0, 1))."""
     pads = []
-    for size in (x.shape[-1], x.shape[-2]):
-        total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    for size, s in zip((x.shape[-1], x.shape[-2]), _pair(stride)[::-1]):
+        total = max((-(-size // s) - 1) * s + kernel - size, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
+
+
+def conv_transpose_same(x: torch.Tensor, weight: torch.Tensor, stride
+                        ) -> torch.Tensor:
+    """flax's ``ConvTranspose`` with ``SAME`` padding (no kernel
+    transpose) of NCHW x, its kernel stored as ``conv_transpose2d``'s
+    (in, out, kh, kw) weight, already flipped in space: the full
+    transposed conv, cropped along each axis to ``stride * n`` from offset
+    ``k - 1 - pad_a``, where ``pad_a`` is the low padding that
+    ``lax.conv_transpose`` gives the dilated input (``k - 1`` when the
+    stride exceeds ``k - 1``, else ``ceil((k + s - 2) / 2)``). Kernel =
+    stride crops nothing; a 3x3 kernel crops from 1 on a stride-1 axis
+    and from 0 on a stride-2 axis."""
+    strides = _pair(stride)
+    y = F.conv_transpose2d(x, weight, stride=strides)
+    for axis, (k, s) in enumerate(zip(weight.shape[2:], strides)):
+        pad_a = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+        y = y.narrow(2 + axis, k - 1 - pad_a, s * x.shape[2 + axis])
+    return y
 
 
 def batch_norm(xf: torch.Tensor, layer: nn.Module, channel_dim: int, *,
@@ -71,18 +98,18 @@ def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 class ConvBNRelu(nn.Module):
-    """2D conv (or transposed conv) + BatchNorm + ReLU.
+    """2D conv (or transposed conv) + BatchNorm + ReLU, ``SAME`` padded,
+    with a square kernel and a stride that is one int or an (H, W) pair.
 
     BatchNorm is :func:`batch_norm`.
 
     The conv weight is (out, in, k, k); the transposed conv's is
     (in, out, k, k), already spatially flipped, so that
-    ``conv_transpose2d(x, weight, stride=k)`` equals flax's
-    ``ConvTranspose`` with kernel = stride and ``SAME`` padding.
+    :func:`conv_transpose_same` equals flax's ``ConvTranspose``.
     """
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 stride: int = 1, transpose: bool = False,
+                 stride=1, transpose: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel, self.stride = kernel, stride
@@ -99,7 +126,7 @@ class ConvBNRelu(nn.Module):
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype)
         if self.transpose:
-            x = F.conv_transpose2d(x, w, stride=self.stride)
+            x = conv_transpose_same(x, w, self.stride)
         else:
             x = F.conv2d(pad_same(x, self.kernel, self.stride), w,
                          stride=self.stride)
@@ -111,6 +138,31 @@ class ConvBNRelu(nn.Module):
         fan_in = (w.shape[0] * w.shape[2] * w.shape[3] if self.transpose
                   else w[0].numel())
         return fan_in ** -0.5
+
+
+class Conv(nn.Module):
+    """flax's ``nn.Conv`` with a square kernel, stride 1 and ``SAME``
+    padding, with or without a bias. ``dtype`` None computes as flax does
+    with no dtype: in the promotion of the input and the f32 parameters,
+    so in f32."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 1,
+                 bias: bool = True, dtype=None):
+        super().__init__()
+        self.kernel, self.dtype = kernel, dtype
+        self.weight = nn.Parameter(
+            torch.zeros((features, in_features, kernel, kernel)))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        x = pad_same(x.to(dtype), self.kernel, 1)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.conv2d(x, self.weight.to(dtype), bias)
+
+    def weight_std(self) -> float:
+        """flax's lecun-normal: variance 1 / fan_in."""
+        return self.weight[0].numel() ** -0.5
 
 
 # -- point networks (channels last) -------------------------------------------

@@ -1,8 +1,9 @@
 """Losses (port of ``cross_entropy``, ``sigmoid_focal_loss``,
-``smooth_l1`` and ``sin_difference`` from ``lisec_tpu/training/losses.py``):
-the segmentation cross-entropy; the detectors' focal loss (alpha 0.25,
-gamma 2) and smooth-L1 with SECOND's sin-difference angle trick. The
-other workloads' losses come with those workloads.
+``smooth_l1``, ``sin_difference`` and ``lovasz_softmax`` from
+``lisec_tpu/training/losses.py``): the segmentation cross-entropy and
+the range segmenter's Lovász-softmax; the detectors' focal loss (alpha
+0.25, gamma 2) and smooth-L1 with SECOND's sin-difference angle trick.
+The other workloads' losses come with those workloads.
 """
 
 from __future__ import annotations
@@ -63,3 +64,35 @@ def sin_difference(pred_boxes: torch.Tensor, target_boxes: torch.Tensor):
     target = torch.cat(
         [target_boxes[..., :6], torch.cos(rp) * torch.sin(rt)], dim=-1)
     return pred, target
+
+
+def lovasz_softmax(probs: torch.Tensor, labels: torch.Tensor, *,
+                   num_classes: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Lovász-softmax (the Lovász extension of the IoU) over flattened
+    pixels: probs (..., C) softmax probabilities, labels (...,) int; the
+    mean over the classes present of each class's loss. All classes go
+    through one sort: each class's errors in descending order, ties to
+    the lower index (a stable sort of the negated errors, as the JAX
+    package's ``argsort``; the order of tied errors moves the
+    gradient)."""
+    probs = probs.reshape(-1, num_classes)
+    labels = labels.reshape(-1)
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask.reshape(-1).bool()
+    classes = torch.arange(num_classes, device=labels.device)[:, None]
+    fg = ((labels.clamp_min(0)[None] == classes) & valid).to(probs.dtype)
+    errors = torch.where(valid, (fg - probs.T).abs(), 0.0)     # (C, P)
+    order = torch.sort(-errors.detach(), dim=1, stable=True).indices
+    errors_sorted = errors.gather(1, order)
+    fg_sorted = fg.gather(1, order)
+    valid_sorted = valid.to(probs.dtype)[order]
+    gts = fg.sum(1, keepdim=True)
+    inter = gts - fg_sorted.cumsum(1)
+    union = gts + (valid_sorted - fg_sorted).cumsum(1)
+    jaccard = 1.0 - inter / union.clamp_min(1e-6)
+    grad = torch.cat([jaccard[:, :1], jaccard[:, 1:] - jaccard[:, :-1]], 1)
+    present = gts[:, 0] > 0
+    losses = torch.where(present, (errors_sorted * grad).sum(1), 0.0)
+    return losses.sum() / present.sum().clamp_min(1)

@@ -25,6 +25,15 @@ PointNet++'s flax names map by module: ``SetAbstraction_i/SharedMLP_j``
 ``Dense_0``, ``BatchNorm_0`` and ``Dense_1`` -> ``head_dense``,
 ``head_bn``, ``head_out``.
 
+RangeSegNet's map by position (``lisec_tpu_torch/models/rangeseg.py``):
+``ConvBNRelu_0`` -> ``stem``; the top-level ``Conv_i`` and
+``BatchNorm_i`` below the level count L -> ``down.i``;
+``ConvTranspose_i`` and ``BatchNorm_{L + i}`` -> ``up.i``; ``Conv_L``
+(the head, with its bias) -> ``head``; ``_ResBlock_j/ConvBNRelu_c`` ->
+``blocks.j.conv.c`` and ``_ResBlock_j/Conv_0`` -> ``blocks.j.proj``. L is
+the number of top-level ``ConvTranspose_i``, and every one of them is a
+transposed kernel.
+
 ``to_flax_arrays`` is the way back, for comparing gradients, updated
 parameters and running statistics with the JAX package name by name.
 """
@@ -98,11 +107,63 @@ _PATTERNS = (
 )
 
 
+_BUFFERS = ("mean", "var")
+_RANGESEG_UP = re.compile(r"params/ConvTranspose_\d+/kernel$")
+_RANGESEG_KEY = re.compile(
+    r"(?:params|batch_stats)/(?:"
+    r"(?P<stem>ConvBNRelu_0)/(?:Conv_0|BatchNorm_0)"
+    r"|(?P<kind>Conv|ConvTranspose|BatchNorm)_(?P<i>\d+)"
+    r"|_ResBlock_(?P<j>\d+)/(?:ConvBNRelu_(?P<c>\d+)/(?:Conv_0|BatchNorm_0)"
+    r"|(?P<proj>Conv_0)))/(?P<leaf>kernel|bias|scale|mean|var)$")
+
+
+def _rangeseg_name(key: str, levels: int) -> str:
+    """Flat flax key of RangeSegNet -> the port's ``state_dict`` name."""
+    m = _RANGESEG_KEY.match(key)
+    if m is None:
+        raise KeyError(f"no place in the port's model for {key!r}")
+    leaf = "weight" if m["leaf"] == "kernel" else m["leaf"]
+    if m["stem"]:
+        return f"stem.{leaf}"
+    if m["j"] is not None:
+        inner = "proj" if m["proj"] else f"conv.{m['c']}"
+        return f"blocks.{m['j']}.{inner}.{leaf}"
+    i = int(m["i"])
+    if m["kind"] == "ConvTranspose":
+        return f"up.{i}.{leaf}"
+    if m["kind"] == "Conv":
+        return f"down.{i}.{leaf}" if i < levels else f"head.{leaf}"
+    return f"down.{i}.{leaf}" if i < levels else f"up.{i - levels}.{leaf}"
+
+
+def _rangeseg_flax_key(name: str, levels: int) -> str:
+    """RangeSegNet ``state_dict`` name -> flat flax key."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    conv = leaf == "weight"
+    col = "batch_stats" if leaf in _BUFFERS else "params"
+    if parts[0] == "stem":
+        path = "ConvBNRelu_0/" + ("Conv_0" if conv else "BatchNorm_0")
+    elif parts[0] == "down":
+        path = f"{'Conv' if conv else 'BatchNorm'}_{parts[1]}"
+    elif parts[0] == "up":
+        path = (f"ConvTranspose_{parts[1]}" if conv
+                else f"BatchNorm_{levels + int(parts[1])}")
+    elif parts[0] == "head":
+        path = f"Conv_{levels}"
+    elif parts[2] == "proj":                  # blocks.<j>.proj.weight
+        path = f"_ResBlock_{parts[1]}/Conv_0"
+    else:                                     # blocks.<j>.conv.<c>.<leaf>
+        path = (f"_ResBlock_{parts[1]}/ConvBNRelu_{parts[3]}/"
+                + ("Conv_0" if conv else "BatchNorm_0"))
+    return f"{col}/{path}/{'kernel' if conv else leaf}"
+
+
 def _convert_value(key: str, arr: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr, np.float32))
     if re.search(r"Dense_\d+/kernel$", key):
         return t.T.contiguous()
-    if key.endswith("ConvTranspose_0/kernel"):
+    if re.search(r"ConvTranspose_\d+/kernel$", key):
         return t.permute(2, 3, 0, 1).flip(2, 3).contiguous()
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1).contiguous()
@@ -114,9 +175,13 @@ def _convert_value(key: str, arr: np.ndarray) -> torch.Tensor:
 def convert_flax_arrays(flat: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """Flat flax arrays -> the ``state_dict`` of the port's
-    PointPillarsFused, SECONDNet or PointNet2PartSeg.
+    PointPillarsFused, SECONDNet, PointNet2PartSeg or RangeSegNet.
 
     Raises KeyError on a key it cannot place."""
+    levels = sum(1 for key in flat if _RANGESEG_UP.match(key))
+    if levels:
+        return {_rangeseg_name(key, levels): _convert_value(key, arr)
+                for key, arr in flat.items()}
     out = {}
     for key, arr in flat.items():
         for pattern, name in _PATTERNS:
@@ -138,9 +203,6 @@ def load_weights_npz(model: nn.Module, path: str) -> nn.Module:
         state = convert_flax_arrays({k: data[k] for k in data.files})
     model.load_state_dict(state, strict=True)
     return model
-
-
-_BUFFERS = ("mean", "var")
 
 
 _POINTNET2_PARTS = {"sa", "global_sa", "fp3", "fp", *_POINTNET2_HEAD.values()}
@@ -202,14 +264,15 @@ def to_flax_arrays(model: nn.Module,
     arrays in flax layouts. ``tensors`` (same names and layouts as the
     ``state_dict``, e.g. the parameters' gradients) is converted instead
     when given."""
-    transposed = {f"backbone.layers.{i}.weight"
-                  for i, layer in enumerate(model.backbone.layers)
-                  if layer.transpose} if hasattr(model, "backbone") else ()
+    transposed = {f"{n}.weight" for n, m in model.named_modules()
+                  if getattr(m, "transpose", False)}
+    levels = len(model.up) if hasattr(model, "up") else 0
     out = {}
     for name, t in (model.state_dict() if tensors is None
                     else tensors).items():
         t = t.detach().cpu().float()
-        key = _flax_key(name)
+        key = (_rangeseg_flax_key(name, levels) if levels
+               else _flax_key(name))
         if t.dim() == 2 and "/Dense_" in key:      # nn.Linear (out, in)
             t = t.T
         elif name in transposed:                   # undo flip and permute
