@@ -12,7 +12,11 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    and edge-case clouds at KITTI geometry (one cell, all masked, cell
    edges, a tile denser than its shared memory holds, tile boundaries) at
    batch 4, 8 and 32, f32 and bf16, twice identical; ``segment_paint`` in its three channel
-   splits and at the edges of its tiling, ``segment_unpaint``, and
+   splits and at the edges of its tiling; the unpaint source's three
+   entries bit for bit (``segment_unpaint`` into f32 and bf16 at C = 4,
+   6, 16, 64, 65, misaligned and on a sparse conv's cotangent gather;
+   ``segment_max_backward`` with f32 and bf16-valued h full of ties;
+   ``pillar_decorate`` on edge-case clouds and edge ids), and
    ``segment_max_sorted`` forward and backward (f32 inputs, and
    bf16-valued inputs full of ties);
    ``spread_accumulate`` on the rulebooks of ray-cast scenes at SECOND's
@@ -28,8 +32,10 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    the small ``pointpillars_tiny`` predict on the card against the CPU;
 4. drive the training path: full-width PointPillars train steps
    (``configs/pointpillars_fixture_hard_conv.yaml``, bf16, batch 4,
-   adamw + onecycle + clip) from the same snapshot on ray-cast scenes,
-   the launch counts again set to 0 just before and read just after;
+   adamw + onecycle + clip) from the same snapshot on ray-cast scenes
+   (2 unpaint-source launches a step: the decoration and the segment-max
+   backward), the launch counts again set to 0 just before and read just
+   after;
    check the loss, gradients, parameters and running statistics; take
    the first step's loss and gradients again with the paint and unpaint
    wrappers swapped for their plain versions; then a short
@@ -40,7 +46,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    before and read just after, and hold the kernel route against the
    plain route; drive SECOND training
    (``configs/second_fixture_conv.yaml`` at full width, batch 4) the same
-   way as phase 4;
+   way as phase 4 (10 gathers of the unpaint source a step);
 6. time the PointPillars predict at batch 8 and 32, the SECOND predict
    at batch 1 and 8 with its stages (and its two paint calls at batch
    8), both train steps and their parts at batch 4, and every kernel, its
@@ -82,9 +88,11 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    scratch's allocation and the kernels' own launches, nothing else;
    the paint and the spread also at the range-seg predict's shapes),
    then take the device time of every timed call of the encoder, FPS,
-   the paint, the scatter, the gathers and the spreads of a batch-8
-   SECOND predict and of the range-seg predicts, by kernel (after the
-   timed phases, so that no trace touches them);
+   the paint, the scatter, the gathers, the spreads of a batch-8
+   SECOND predict and of the range-seg predicts, and the unpaint
+   source's calls of both train steps (and the plain C = 4 gather beside
+   ``torch.gather``), by kernel (after the timed phases, so that no trace
+   touches them);
 10. print the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -393,6 +401,127 @@ def check_paint(got, ref, num_max, what):
     return float(d.max()), int((d != 0).sum())
 
 
+# The unpaint source's entries and the kernel each launches.
+UNPAINT_ENTRIES = ("segment_unpaint", "segment_max_backward",
+                   "pillar_decorate")
+UNPAINT_KERNELS = {"segment_unpaint": "unpaint_kernel",
+                   "segment_max_backward": "segmax_backward_kernel",
+                   "pillar_decorate": "decorate_kernel"}
+
+
+def equal_to_plain(entry, args, kw, what):
+    """One call of an unpaint-source entry on the card against its plain
+    version on the same tensors, bit for bit (``torch.equal``: -0.0
+    equals 0.0 there). Returns the kernel's output."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    got = getattr(su, entry)(*args, **kw)
+    torch.cuda.synchronize()
+    ref = getattr(su, entry + "_reference")(*args, **kw)
+    if got.dtype != ref.dtype or not torch.equal(got, ref):
+        raise AssertionError(
+            f"{entry} {what}: {int((got.float() != ref.float()).sum())} of "
+            f"{got.numel()} elements differ from the plain version")
+    return got
+
+
+def check_unpaint_entries(gen):
+    """The unpaint source's three entries bit-equal to their plain
+    versions: the gather at C = 4, 6, 16, 64, 65 (its three unit widths)
+    into f32 and bf16, on a misaligned table view and on a sparse conv's
+    cotangent gather with its -1 entries; the segment-max backward at the
+    train path's shape and C = 4, 16, 65 with f32 and bf16-valued h full
+    of ties; the decoration on edge-case clouds at KITTI geometry (one
+    cell, all masked, cell edges, dense tiles) and on ids below 0 and at
+    or above the table with arbitrary stats. Every edge-id case holds ids
+    below 0, ids >= R, a cloud all in one cell and a cloud all invalid
+    (``edge_case_ids``)."""
+    import torch
+    from lisec_tpu_torch.ops import scatter
+    from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    ids = edge_case_ids(32768, NCELLS, gen).cuda()
+    for c in (4, 6, 16, 64, 65):
+        table = torch.randn((4, NCELLS, c), generator=gen).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            got = equal_to_plain("segment_unpaint", (table, ids),
+                                 {"out_dtype": dtype}, f"C={c} {dtype}")
+            if got[2].any() or not got[1].any():
+                raise AssertionError("segment_unpaint: edge clouds")
+        emit("kernel_check", kernel="segment_unpaint", entry="gather",
+             table=list(table.shape), shape=list(got.shape),
+             out_dtypes=["float32", "bfloat16"], max_abs_err=0.0,
+             bit_equal=True)
+    # A table view 4 bytes past an aligned start: one float a lane.
+    flat = torch.randn(4 * 5000 * 64 + 1, generator=gen).cuda()
+    table = flat[1:].view(4, 5000, 64)
+    ids5k = edge_case_ids(32768, 5000, gen).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        equal_to_plain("segment_unpaint", (table, ids5k), {"out_dtype": dtype},
+                       f"misaligned {dtype}")
+    emit("kernel_check", kernel="segment_unpaint", entry="gather",
+         case="misaligned_table", table=list(table.shape), max_abs_err=0.0,
+         bit_equal=True)
+    # A sparse conv's cotangent gather: (B, K * V_in) unsorted ids, most
+    # of them -1, into a (B, V_out, Cout) table.
+    v_in, v_out = 20_000, 18_000
+    dz_ids = torch.randint(0, v_out, (4, 27 * v_in), generator=gen)
+    dz_ids[torch.rand(dz_ids.shape, generator=gen) < 0.85] = -1
+    dz_ids = dz_ids.to(torch.int32).cuda()
+    for c in (16, 64):
+        g = torch.randn((4, v_out, c), generator=gen).cuda()
+        equal_to_plain("segment_unpaint", (g, dz_ids), {}, f"dz C={c}")
+        emit("kernel_check", kernel="segment_unpaint", entry="gather",
+             case="sparse_conv_dz", table=list(g.shape),
+             rows=list(dz_ids.shape), max_abs_err=0.0, bit_equal=True)
+
+    # The segment-max backward on the canvas its forward painted.
+    for c in (64, 4, 16, 65):
+        for name, h in (
+                ("f32", torch.randn((4, 32768, c), generator=gen)),
+                ("bf16_ties", (torch.randint(0, 6, (4, 32768, c),
+                                             generator=gen)
+                               * 0.25).bfloat16())):
+            h = h.cuda()
+            canvas, _ = scatter.segment_max_sorted(h, ids, NCELLS)
+            g = torch.randn((4, NCELLS, c), generator=gen).cuda()
+            dh = equal_to_plain("segment_max_backward", (h, ids, canvas, g),
+                                {}, f"C={c} {name}")
+            if dh[2].any() or not dh[1].any():
+                raise AssertionError("segment_max_backward: edge clouds")
+            emit("kernel_check", kernel="segment_unpaint",
+                 entry="segment_max_backward", h=list(h.shape),
+                 dtype=str(h.dtype), inputs=name, max_abs_err=0.0,
+                 bit_equal=True,
+                 rows_with_gradient=int((dh != 0).any(-1).sum()))
+
+    # The decoration: clouds through the train path's own steps, then ids
+    # the path never makes.
+    geo = kitti_geometry()
+    pts, mask = (a.cuda() for a in edge_case_clouds(6, 32768, geo, gen))
+    cell, _, _, _ = ek.pillar_cells(pts, mask, **geo)
+    cell_s, order = torch.sort(cell, dim=1, stable=True)
+    pts_s = torch.gather(pts, 1, order[..., None].expand(-1, -1, 4))
+    ones = (cell_s < NCELLS).float()[..., None]
+    stats = sp.segment_paint(torch.cat([pts_s[..., :3] * ones, ones], -1),
+                             cell_s, num_cells=NCELLS, num_max=0)
+    feats = equal_to_plain("pillar_decorate", (pts_s, cell_s, stats), geo,
+                           "edge-case clouds")
+    if feats[2].any() or not feats[1, :, 4:6].abs().max() < 0.05:
+        raise AssertionError("pillar_decorate: edge clouds")
+    emit("kernel_check", kernel="segment_unpaint", entry="pillar_decorate",
+         case="edge_case_clouds", cases=["random", *ENCODER_EDGE_CASES],
+         points=list(pts_s.shape), max_abs_err=0.0, bit_equal=True,
+         valid_points=int((cell_s < NCELLS).sum()))
+    stats = (torch.randn((4, NCELLS, 4), generator=gen) * 50).cuda()
+    stats[..., 3] = stats[..., 3].abs().round()
+    pts_r = torch.randn((4, 32768, 4), generator=gen).cuda() * 30
+    equal_to_plain("pillar_decorate", (pts_r, ids, stats), geo, "edge ids")
+    emit("kernel_check", kernel="segment_unpaint", entry="pillar_decorate",
+         case="edge_ids", points=list(pts_r.shape), max_abs_err=0.0,
+         bit_equal=True)
+
+
 def phase_segment_kernel_check(gen):
     """segment_paint, segment_unpaint and segment_max_sorted on the card
     against their plain versions, at the train path's shapes and on edge
@@ -501,23 +630,7 @@ def phase_segment_kernel_check(gen):
              max_channels="bit-equal", sum_max_abs_err=err,
              sum_elements_differing=bits, two_runs_identical=True)
 
-    # segment_unpaint: the train path's tables (C = 64 and 4, the vector
-    # path) and a C that is no multiple of 4 (the scalar path); bit-equal,
-    # the zero rows of invalid ids included.
-    ids = edge_case_ids(32768, NCELLS, gen).cuda()
-    for c in (64, 4, 65):
-        table = torch.randn((4, NCELLS, c), generator=gen).cuda()
-        got = su.segment_unpaint(table, ids)
-        torch.cuda.synchronize()
-        ref = su.segment_unpaint_reference(table, ids)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"segment_unpaint C={c}: "
-                                 f"{int((got != ref).sum())} elements differ")
-        if got[2].any() or not got[1].any():
-            raise AssertionError("segment_unpaint: edge clouds")
-        emit("kernel_check", kernel="segment_unpaint",
-             table=list(table.shape), shape=list(got.shape),
-             max_abs_err=0.0, bit_equal=True)
+    check_unpaint_entries(gen)
 
     # segment_max_sorted: the kernel Function against the same Function
     # over the plain versions, value and gradient, bit-equal.
@@ -552,16 +665,15 @@ def phase_segment_kernel_check(gen):
 
 
 @contextlib.contextmanager
-def swapped_segment_ops(paint, unpaint, spread):
-    """Swap ``segment_paint``, ``segment_unpaint`` and
-    ``spread_accumulate`` in the modules that call them, here only: the
+def swapped_segment_ops(**new):
+    """Swap the segment wrappers named in ``new`` (``segment_paint``,
+    ``segment_unpaint``, ``segment_max_backward``, ``pillar_decorate``,
+    ``spread_accumulate``) in the modules that call them, here only: the
     package has no switch on the card."""
     from lisec_tpu_torch.models import pillar_encoder
     from lisec_tpu_torch.ops import (knn_refine, range_proj, scatter,
                                      sparse_conv, voxelize)
     from lisec_tpu_torch.training import assigner
-    new = {"segment_paint": paint, "segment_unpaint": unpaint,
-           "spread_accumulate": spread}
     saved = [(mod, name, getattr(mod, name))
              for mod in (pillar_encoder, scatter, assigner, voxelize,
                          sparse_conv, range_proj, knn_refine)
@@ -580,9 +692,12 @@ def plain_segment_ops():
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
-    return swapped_segment_ops(sp.segment_paint_reference,
-                               su.segment_unpaint_reference,
-                               sa.spread_accumulate_reference)
+    return swapped_segment_ops(
+        segment_paint=sp.segment_paint_reference,
+        segment_unpaint=su.segment_unpaint_reference,
+        segment_max_backward=su.segment_max_backward_reference,
+        pillar_decorate=su.pillar_decorate_reference,
+        spread_accumulate=sa.spread_accumulate_reference)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -880,15 +995,28 @@ def paint_bound(vals, ids, num_cells):
                                  else "operations"), nbytes
 
 
-def unpaint_bound(table, ids):
-    """Least ms: the ids and the table rows this run's ids name read
-    once, the output written once; no arithmetic."""
+def unpaint_bound(entry, args, kw):
+    """Least ms of an unpaint-source call, by bytes (no arithmetic that
+    counts): the ids and the distinct table rows this run's ids name read
+    once, and for the gather its output written once; for the segment-max
+    backward the canvas and cotangent rows, h read and dh written; for the
+    decoration the points read and the 9-float rows written."""
     import torch
+    ids = args[1]
+    table = args[0] if entry == "segment_unpaint" else args[2]
     b, r, c = table.shape
     ok = (ids >= 0) & (ids < r)
     flat = ids.long() + torch.arange(b, device=ids.device)[:, None] * r
     rows_read = int(torch.unique(flat[ok]).numel())
-    nbytes = ids.nbytes + rows_read * c * 4 + ids.numel() * c * 4
+    if entry == "segment_unpaint":
+        out = kw.get("out_dtype", torch.float32)
+        nbytes = (ids.nbytes + rows_read * c * 4
+                  + ids.numel() * c * (2 if out == torch.bfloat16 else 4))
+    elif entry == "segment_max_backward":
+        nbytes = ids.nbytes + 2 * rows_read * c * 4 + 2 * args[0].nbytes
+    else:
+        nbytes = (ids.nbytes + args[0].nbytes + rows_read * c * 4
+                  + ids.numel() * 9 * 4)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
 
 
@@ -978,11 +1106,111 @@ def paint_call_row(vals, ids, nc, num_max, split):
     return row
 
 
+def decorate_composed(pts_s, cell_s, stats, grid, voxel_size, pc_range):
+    """The decoration as the encoder composed it before it was one
+    launch: the C = 4 gather kernel, then the torch ops (the route the
+    decoration kernel replaces, on this tree's gather)."""
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    import torch
+    nx, ny = grid
+    ncells = nx * ny
+    ones = (cell_s < ncells).float()[..., None]
+    per_pt = su.segment_unpaint(stats, cell_s)
+    mean_pt = per_pt[..., :3] / per_pt[..., 3:].clamp_min(1.0)
+    cell_c = cell_s.clamp(max=ncells - 1)
+    px = ((cell_c % nx).float() + 0.5) * voxel_size[0] + pc_range[0]
+    py = ((cell_c // nx).float() + 0.5) * voxel_size[1] + pc_range[1]
+    center = torch.stack([pts_s[..., 0] - px, pts_s[..., 1] - py], -1)
+    return torch.cat([pts_s, pts_s[..., :3] - mean_pt, center], -1) * ones
+
+
+def unpaint_call_row(entry, args, kw):
+    """One unpaint-source call timed on the tensors a train step handed
+    it, after holding it bit-equal to its plain version there: the
+    wrapper (one launch; ``device_ms``, filled in at the end, its
+    kernel's own time), its plain version, its bound and, for a gather
+    into f32, ``torch.gather`` as the one PyTorch call for the same
+    function. The segment-max backward and the decoration also time the
+    route each replaces (``composed_ms``: this source's gathers and the
+    torch glue around them); the decoration also times the plain C = 4
+    gather of its stats table (its ``c4_gather``, kernel and
+    ``torch.gather``, both with their device times); a gather also times
+    a fill of its output (``write_floor_ms``)."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
+    equal_to_plain(entry, args, kw, "train step call")
+    fn, plain = getattr(su, entry), getattr(su, entry + "_reference")
+    bound, by, nbytes = unpaint_bound(entry, args, kw)
+
+    def call():
+        return fn(*args, **kw)
+
+    def gather_index(table, ids):
+        ok = (ids >= 0) & (ids < table.shape[1])
+        return torch.where(ok, ids, 0).long()[..., None].expand(
+            -1, -1, table.shape[2])
+    row = dict(
+        entry=entry, shapes=[list(a.shape) for a in args],
+        dtypes=[str(a.dtype) for a in args],
+        **{k: str(v) for k, v in kw.items() if k == "out_dtype"},
+        ms=cuda_ms(call, 20),
+        plain_ms=cuda_ms(lambda: plain(*args, **kw), 5),
+        library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes,
+        expect_launches={UNPAINT_KERNELS[entry]: 1})
+    if entry == "segment_unpaint":
+        table, ids = args
+        idx = gather_index(table, ids)
+        row["gather_ms"] = cuda_ms(lambda: torch.gather(table, 1, idx), 20)
+        if kw.get("out_dtype", torch.float32) == torch.float32:
+            row["library_ms"] = row["gather_ms"]
+        # The output written alone (a fill of a tensor of its size and
+        # type): a floor under any gather into it.
+        out = call()
+        row["write_floor_ms"] = cuda_ms(out.zero_, 20)
+    elif entry == "segment_max_backward":
+        h, ids, canvas, g = args
+        idx = gather_index(canvas, ids)
+
+        def composed():
+            mx = su.segment_unpaint(canvas, ids)
+            gp = su.segment_unpaint(g, ids)
+            return torch.where(h.float() == mx, gp, 0.0).to(h.dtype)
+        row["composed_ms"] = cuda_ms(composed, 20)
+        row["two_gathers_ms"] = cuda_ms(lambda: (
+            torch.gather(canvas, 1, idx), torch.gather(g, 1, idx)), 20)
+    else:
+        pts_s, ids, stats = args
+        row["composed_ms"] = cuda_ms(lambda: decorate_composed(
+            *args, **kw), 20)
+        idx = gather_index(stats, ids)
+        c4_bound = unpaint_bound("segment_unpaint", (stats, ids), {})[0]
+
+        def c4():
+            return su.segment_unpaint(stats, ids)
+
+        def c4_library():
+            return torch.gather(stats, 1, idx)
+        kernel_row = dict(entry="segment_unpaint", table=list(stats.shape),
+                          rows=list(ids.shape), ms=cuda_ms(c4, 20),
+                          library_ms=None, bound_ms=c4_bound,
+                          expect_launches={"unpaint_kernel": 1})
+        library_row = dict(entry="torch.gather", table=list(stats.shape),
+                           rows=list(ids.shape), ms=cuda_ms(c4_library, 20),
+                           library_ms=None, bound_ms=c4_bound)
+        kernel_row["library_ms"] = library_row["ms"]
+        row["c4_gather"] = {"kernel": kernel_row, "torch_gather": library_row}
+        DEVICE_TIMED.append(("segment_unpaint", kernel_row, c4))
+        DEVICE_TIMED.append(("torch.gather", library_row, c4_library))
+    DEVICE_TIMED.append(("segment_unpaint", row, call))
+    return row
+
+
 @contextlib.contextmanager
 def recorded_segment_calls(calls):
-    """Record what the paint, unpaint and spread wrappers are handed, by
-    kernel, in the dict ``calls`` (values detached), while they run as
-    they are."""
+    """Record what the paint, unpaint-source and spread wrappers are
+    handed, by kernel, in the dict ``calls`` (values detached), while they
+    run as they are. An unpaint-source call is recorded as (entry, args,
+    keywords)."""
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
@@ -995,16 +1223,23 @@ def recorded_segment_calls(calls):
         return sp.segment_paint(vals, ids, num_cells=num_cells,
                                 num_max=num_max, split=split)
 
-    def rec_unpaint(table, ids):
-        calls["segment_unpaint"].append((table.detach(), ids))
-        return su.segment_unpaint(table, ids)
+    def recorder(entry):
+        fn = getattr(su, entry)
+
+        def rec(*args, **kw):
+            calls["segment_unpaint"].append(
+                (entry, tuple(a.detach() for a in args), kw))
+            return fn(*args, **kw)
+        return rec
 
     def rec_spread(vals, targets, *, num_out, sources=None):
         calls["spread_accumulate"].append((vals.detach(), targets, num_out,
                                            sources))
         return sa.spread_accumulate(vals, targets, num_out=num_out,
                                     sources=sources)
-    with swapped_segment_ops(rec_paint, rec_unpaint, rec_spread):
+    with swapped_segment_ops(
+            segment_paint=rec_paint, spread_accumulate=rec_spread,
+            **{e: recorder(e) for e in UNPAINT_ENTRIES}):
         yield
 
 
@@ -1059,20 +1294,8 @@ def phase_train_timing(name, pipe, cfg, batch):
     rows["segment_paint"] = [paint_call_row(*call)
                              for call in calls["segment_paint"]]
 
-    per_call = []
-    for table, ids in calls["segment_unpaint"]:
-        c = table.shape[2]
-        bound, by, nbytes = unpaint_bound(table, ids)
-        ok = (ids >= 0) & (ids < table.shape[1])
-        idx = torch.where(ok, ids, 0).long()[..., None].expand(-1, -1, c)
-        per_call.append(dict(
-            table=list(table.shape), rows=list(ids.shape),
-            ms=cuda_ms(lambda: su.segment_unpaint(table, ids), 20),
-            plain_ms=cuda_ms(lambda: su.segment_unpaint_reference(
-                table, ids), 5),
-            library_ms=cuda_ms(lambda: torch.gather(table, 1, idx), 20),
-            bound_ms=bound, bound_by=by, bytes=nbytes))
-    rows["segment_unpaint"] = per_call
+    rows["segment_unpaint"] = [unpaint_call_row(*call) for call
+                               in calls["segment_unpaint"]]
     for kernel, per_call in rows.items():
         for i, call in enumerate(per_call):
             emit("train_kernel", config=name, kernel=kernel, call=i, **call)
@@ -1425,7 +1648,7 @@ SECOND_LAUNCHES_PER_PREDICT = {"segment_paint": 2, "segment_unpaint": 0,
 SECOND_LAUNCHES_PER_TRAIN_STEP = {"segment_paint": 3, "segment_unpaint": 10,
                                   "spread_accumulate": 9}
 POINTPILLARS_LAUNCHES_PER_TRAIN_STEP = {
-    "segment_paint": 3, "segment_unpaint": 3, "spread_accumulate": 0}
+    "segment_paint": 3, "segment_unpaint": 2, "spread_accumulate": 0}
 
 
 def phase_second_serving(pipe, cfg):
@@ -2882,12 +3105,18 @@ DEVICE_LAUNCHES = {
 def phase_device_times():
     """The kernels' own time on the card (``device_ms``) of every timed
     ``pillar_canvas_fused``, ``fps``, ``segment_paint``, ``scatter_rows``,
-    ``gather_rows`` and ``spread_accumulate`` call, and what it launched
-    (``device_parts``), filled into its row."""
+    ``gather_rows``, ``spread_accumulate`` and unpaint-source call (and of
+    the ``torch.gather`` beside the plain C = 4 gather), and what it
+    launched (``device_parts``), filled into its row; a row that names its
+    launches (``expect_launches``) must have launched just those."""
     for kernel, row, call in DEVICE_TIMED:
         row["device_ms"], row["device_parts"] = device_parts(call)
         got = {k.split("<")[0]: p["per_call"]
                for k, p in row["device_parts"].items()}
+        if "expect_launches" in row and got != row["expect_launches"]:
+            raise AssertionError(f"{kernel} {row.get('entry')} call: "
+                                 f"launched {got}, expected "
+                                 f"{row['expect_launches']}")
         if kernel in DEVICE_LAUNCHES:
             names, count = DEVICE_LAUNCHES[kernel]
             if not set(got) <= names or sum(got.values()) != count:
@@ -2903,7 +3132,9 @@ def phase_device_times():
                 raise AssertionError(f"spread call {row['vals']}: launched "
                                      f"{got}, expected {want}")
         emit("device_time", kernel=kernel,
-             call={k: row[k] for k in ("batch", "points", "samples", "rows",
+             call={k: row[k] for k in ("entry", "shapes", "out_dtype",
+                                       "table", "batch", "points",
+                                       "samples", "rows",
                                        "vals", "src", "ids", "table_rows",
                                        "num_rows", "num_out", "num_max",
                                        "split", "dtype")
@@ -2926,13 +3157,16 @@ def phase_profile_listing():
     without (the invert and the accumulate, no memset), ``fps_gather`` at
     SA1's (one launch for the picks, their xyz and their mask) and
     ``pillar_canvas_fused`` at a batch-8 KITTI predict's (the cell and
-    canvas kernels, no sort, search, gather or memset), and the paint and
-    the spread at the range-seg predict's shapes (one launch each)."""
+    canvas kernels, no sort, search, gather or memset), the paint and
+    the spread at the range-seg predict's shapes (one launch each), and
+    the unpaint source's gather (into bf16), segment-max backward and
+    decoration at a PointPillars train step's (one launch each)."""
     import torch
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
     from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     g = torch.Generator(device="cuda").manual_seed(5)
     vals = torch.randn((16, 8192, 128), generator=g, device="cuda")
@@ -2973,6 +3207,12 @@ def phase_profile_listing():
                                       device="cuda"))
     firsts = torch.where(firsts < hw // 4, firsts, -1).to(torch.int32)
     first_of = inverse_map(firsts, hw)
+    # The unpaint source's three entries at the PointPillars train step's
+    # shapes (the gather into bf16, as the densify backward asks).
+    table64 = torch.randn((4, NCELLS, 64), generator=g, device="cuda")
+    h_bf16 = torch.randn((4, 32768, 64), generator=g,
+                         device="cuda").bfloat16()
+    stats4 = torch.rand((4, NCELLS, 4), generator=g, device="cuda") * 9
     calls = {
         "fps_gather": (lambda: fk.fps_gather(cloud, cloud_mask, 512),
                        {"fps_reg_kernel": 1}),
@@ -2999,7 +3239,14 @@ def phase_profile_listing():
             {"segment_paint_kernel": 1}),
         "spread_accumulate_knn_delivery": (lambda: sa.spread_accumulate(
             window_rows, firsts, num_out=hw, sources=first_of),
-            {"spread_accumulate_kernel": 1})}
+            {"spread_accumulate_kernel": 1}),
+        "segment_unpaint_bf16_out": (lambda: su.segment_unpaint(
+            table64, cells, out_dtype=torch.bfloat16),
+            {"unpaint_kernel": 1}),
+        "segment_max_backward": (lambda: su.segment_max_backward(
+            h_bf16, cells, table64, table64), {"segmax_backward_kernel": 1}),
+        "pillar_decorate": (lambda: su.pillar_decorate(
+            rows, cells, stats4, **geo), {"decorate_kernel": 1})}
     for name, (call, want) in calls.items():
         ops, kernels = profiled(call, 5)
         labels = [kernel_label(k) for k, _ in kernels]
@@ -3107,7 +3354,7 @@ def main() -> int:
                                       "device_parts")},
         "kernel_launches_per_call": 2, "batch_32": timing[32]}]
     # The segment kernels: the times of one PointPillars train step's
-    # calls together (three paints; the unpaints of the decoration and the
+    # calls together (three paints; the unpaint source's decoration and
     # segment-max backward), each call also on its own under "calls". No
     # single PyTorch call computes a table of max and sum channels, so the
     # paint's library time stands only with its all-sum call. Their calls
@@ -3139,6 +3386,10 @@ def main() -> int:
                 second_train[3][name] / TRAIN_STEPS,
             "calls": train_rows[name],
             "second_train_step": summed(second_train_rows[name]),
+            **({"second_train_step_calls": second_train_rows[name],
+                "second_train_step_write_floor_ms": sum(
+                    c["write_floor_ms"] for c in second_train_rows[name])}
+               if mod is su else {}),
             **({"second_predict": summed(second_paints),
                 "second_predict_calls": second_paints, **rangeseg(name)}
                if mod is sp else {})})

@@ -12,12 +12,12 @@ relu still commuting, so one kernel computes the canvas
 
 **Training** (``train()`` mode): BatchNorm needs the batch statistics of
 the per-point features, so the steps stay apart. The points are sorted by
-cell; the paint kernel gives every cell's xyz sums and count and the
-unpaint kernel routes them back to the points (the decoration has no
-parameters and runs under ``no_grad``); then ``feats @ W -> BN -> relu``
-is plain PyTorch and ``segment_max_sorted`` (paint forward, unpaint
-backward, ``lisec_tpu_torch/ops/scatter.py``) reduces the points to the
-canvas.
+cell; the paint kernel gives every cell's xyz sums and count and one
+``pillar_decorate`` launch routes them back to the points and decorates
+them (the decoration has no parameters and runs under ``no_grad``); then
+``feats @ W -> BN -> relu`` is plain PyTorch and ``segment_max_sorted``
+(paint forward, one ``segment_max_backward`` launch backward,
+``lisec_tpu_torch/ops/scatter.py``) reduces the points to the canvas.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from lisec_tpu_torch.models.common import BN_EPS, BN_MOMENTUM
 from lisec_tpu_torch.ops.cuda.encoder_kernel import (
     pillar_canvas_fused, pillar_cells)
 from lisec_tpu_torch.ops.cuda.segment_paint import segment_paint
-from lisec_tpu_torch.ops.cuda.segment_unpaint import segment_unpaint
+from lisec_tpu_torch.ops.cuda.segment_unpaint import pillar_decorate
 from lisec_tpu_torch.ops.scatter import segment_max_sorted
 
 
@@ -94,19 +94,13 @@ class FusedPillarEncoder(nn.Module):
         cell_s, order = torch.sort(cell, dim=1, stable=True)
         pts_s = torch.gather(points, 1, order[..., None].expand(-1, -1, 4))
         ones = (cell_s < ncells).float()[..., None]
-        xyz = pts_s[..., :3]
 
         # Per-cell xyz sums and count, routed back to the cell's points.
-        stats = segment_paint(torch.cat([xyz * ones, ones], -1), cell_s,
-                              num_cells=ncells, num_max=0)     # (B, NC, 4)
-        per_pt = segment_unpaint(stats, cell_s)                # (B, N, 4)
-        mean_pt = per_pt[..., :3] / per_pt[..., 3:].clamp_min(1.0)
-
-        cell_c = cell_s.clamp(max=ncells - 1)
-        px = ((cell_c % nx).float() + 0.5) * self.voxel_size[0] + r[0]
-        py = ((cell_c // nx).float() + 0.5) * self.voxel_size[1] + r[1]
-        center = torch.stack([pts_s[..., 0] - px, pts_s[..., 1] - py], -1)
-        feats = torch.cat([pts_s, xyz - mean_pt, center], -1) * ones
+        stats = segment_paint(torch.cat([pts_s[..., :3] * ones, ones], -1),
+                              cell_s, num_cells=ncells,
+                              num_max=0)                        # (B, NC, 4)
+        feats = pillar_decorate(pts_s, cell_s, stats, grid=self.grid,
+                                voxel_size=self.voxel_size, pc_range=r)
         return cell_s, feats
 
     def _train_path(self, points, point_mask):

@@ -1,16 +1,18 @@
 """Differentiable sorted segment reductions (port of ``segment_max_sorted``
 and ``segment_sum_dense`` from ``lisec_tpu/ops/scatter.py``).
 
-Both run the paint kernel forward and the unpaint kernel backward
-(``lisec_tpu_torch/ops/cuda/segment_paint.py``, ``segment_unpaint.py``;
-on CPU tensors those wrappers compute their plain versions). The
-backward passes are written out here, never left to autograd of a
-scatter: ``scatter_reduce(..., "amax")`` would split a cotangent evenly
-among tied rows, while the segment max gives the whole cotangent to
-every row that equals its cell's max, as the JAX package does. The
-equality is tested in exact f32 (the JAX package tests the leading 17
-mantissa bits; for bf16-valued features the two tests select the same
-rows).
+Both run the paint kernel forward and a kernel of the unpaint source
+backward (``lisec_tpu_torch/ops/cuda/segment_paint.py``,
+``segment_unpaint.py``; on CPU tensors those wrappers compute their
+plain versions): the segment max's whole backward is one
+``segment_max_backward`` launch, the dense sum's one gather that writes
+the features' type. The backward passes are written out here, never left
+to autograd of a scatter: ``scatter_reduce(..., "amax")`` would split a
+cotangent evenly among tied rows, while the segment max gives the whole
+cotangent to every row that equals its cell's max, as the JAX package
+does. The equality is tested in exact f32 (the JAX package tests the
+leading 17 mantissa bits; for bf16-valued features the two tests select
+the same rows).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import Tuple
 import torch
 
 from lisec_tpu_torch.ops.cuda.segment_paint import segment_paint
-from lisec_tpu_torch.ops.cuda.segment_unpaint import segment_unpaint
+from lisec_tpu_torch.ops.cuda.segment_unpaint import (
+    segment_max_backward, segment_unpaint)
 
 
 def _with_ones(h: torch.Tensor) -> torch.Tensor:
@@ -44,17 +47,16 @@ class _SegmentMaxSorted(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_canvas, _g_count):
         h, cell_sorted, canvas = ctx.saved_tensors
-        mx = segment_unpaint(canvas, cell_sorted)
-        gp = segment_unpaint(g_canvas.float().contiguous(), cell_sorted)
-        dh = torch.where(h.float() == mx, gp, 0.0)
-        return dh.to(h.dtype), None, None
+        dh = segment_max_backward(h.contiguous(), cell_sorted, canvas,
+                                  g_canvas.float().contiguous())
+        return dh, None, None
 
 
 def segment_max_sorted(h: torch.Tensor, cell_sorted: torch.Tensor,
                        num_cells: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-cell max of ascending-cell-sorted features, with a gradient.
 
-    h: (B, N, C) per-row features (any float dtype), sorted by
+    h: (B, N, C) per-row features (f32 or bf16), sorted by
     ``cell_sorted`` (B, N) int32 ascending; invalid ids >= num_cells.
     Returns (canvas (B, num_cells, C) f32 with -3e38 where empty, count
     (B, num_cells) f32 valid-row counts). Every row equal to its cell's
@@ -78,8 +80,9 @@ class _SegmentSumDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_table, _g_count):
         cell_sorted, = ctx.saved_tensors
-        per_row = segment_unpaint(g_table.float().contiguous(), cell_sorted)
-        return per_row.to(ctx.h_dtype), None, None
+        per_row = segment_unpaint(g_table.float().contiguous(), cell_sorted,
+                                  out_dtype=ctx.h_dtype)
+        return per_row, None, None
 
 
 def segment_sum_dense(h: torch.Tensor, cell_sorted: torch.Tensor,
@@ -87,8 +90,8 @@ def segment_sum_dense(h: torch.Tensor, cell_sorted: torch.Tensor,
     """Dense per-cell sum table of ascending-cell-sorted features, with a
     gradient (the row gather of the cotangent table).
 
-    h: (B, N, C) per-row features, sorted by ``cell_sorted`` (B, N) int32
-    ascending; invalid ids >= num_cells. With unique cells (a voxel list)
+    h: (B, N, C) per-row features (f32 or bf16), sorted by
+    ``cell_sorted`` (B, N) int32 ascending; invalid ids >= num_cells. With unique cells (a voxel list)
     the sum is an exact placement. Returns (table (B, num_cells, C) f32,
     zeros where empty; count (B, num_cells) f32 per-cell row counts).
     """
