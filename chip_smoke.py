@@ -82,7 +82,37 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    plain route, a short ``train(cfg)``; the predict at batch 8 and 1 at
    both densities by stage, the train step by part, the paint and spread
    calls;
-9. list under ``torch.profiler`` what ``pillar_canvas_fused``,
+9. classification at full width on the ModelNet40 fixture: PointNet
+   (``configs/pointnet_cls_fixture_conv.yaml``: both T-Nets, 1,024
+   points, 40 classes, seed weights) predicts through ``infer`` at batch
+   32 and 1 with every launch count 0, ``pointnet_modelnet40_tiny`` on
+   the card against the CPU, train steps at batch 32 (Adam, step
+   schedule, augmentation) whose first step's loss and gradients, in f32
+   and in f64, are held against the same step on the CPU in f64
+   (dropout the identity), a short
+   ``train(cfg)``; PointNet++ (``configs/pointnet2_modelnet40.yaml``:
+   SSG, batch 24, augmentation with point dropout) with ``fps`` and
+   ``gather_rows`` bit-equal to their plain versions on every call of
+   batch-24 predicts of fixture clouds, masked tails and a ties-heavy
+   cloud, predict at batch 24 and 1 (2 ``fps`` and 2 ``gather_rows``
+   launches, nothing else) against the plain route, train steps (1
+   ``scatter_rows`` a step, checked bit-equal) against the plain route,
+   a short ``train(cfg)``;
+10. ``evaluate``: the trained PointPillars snapshot in
+   ``configs/pointpillars_fixture_hard_conv.yaml`` through
+   ``lisec_tpu_torch.evaluate`` over the whole 256-frame held-out split,
+   held to the JAX package's evaluation of it on the CPU with the exact
+   encoder the port computes (recall@0.5 within 0.02, each official 3D
+   AP within 2.0 points, detections a frame within 5%), and read beside
+   the JAX package's record of it on the TPU
+   (``docs/convergence/pphard_eval.json``), whose encoder kernel routes
+   each cell's max through one bf16 value; then
+   ``evaluate(max_batches=2)`` of both classifiers, part and range
+   segmentation and SECOND, the kernel route against the plain route;
+   then each classifier's predict and train step timed, and every
+   ``fps``, ``gather_rows`` and ``scatter_rows`` call of the PointNet++
+   classifier;
+11. list under ``torch.profiler`` what ``pillar_canvas_fused``,
    ``fps_gather``, ``scatter_rows``, ``segment_paint``, ``gather_rows``,
    the grouping and ``spread_accumulate`` calls run (the outputs' and
    scratch's allocation and the kernels' own launches, nothing else;
@@ -93,7 +123,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    source's calls of both train steps (and the plain C = 4 gather beside
    ``torch.gather``), by kernel (after the timed phases, so that no trace
    touches them);
-10. print the ``{"kernels": [...]}`` line, the card's name and power
+12. print the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 Every comparison on the card runs with TF32 off for matrix products and
@@ -2473,6 +2503,47 @@ def scatter_call_row(vals, idx, num_rows):
     return row
 
 
+def point_kernel_rows(predict, step):
+    """What ``predict()`` hands ``fps_gather`` and the gather kernel (plain
+    gathers and groupings, in launch order) and what ``step()`` hands
+    ``scatter_rows``, each call timed on those tensors: (fps rows, gather
+    rows, scatter rows)."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    calls = {"fps": [], "gather_rows": [], "scatter_rows": []}
+    fps_gather, gather = fk.fps_gather, gr.gather_rows   # before the swap
+    scatter, group = gr.scatter_rows, gr.group_and_decorate
+
+    def rec_fps(points, mask, m):
+        calls["fps"].append((points, mask, m))
+        return fps_gather(points, mask, m)
+
+    def rec_gather(src, idx):
+        calls["gather_rows"].append((gather_call_row, (src.detach(), idx)))
+        return gather(src, idx)
+
+    def rec_group(xyz, features, centers, idx):
+        calls["gather_rows"].append((grouping_call_row, (
+            xyz, None if features is None else features.detach(), centers,
+            idx)))
+        return group(xyz, features, centers, idx)
+
+    def rec_scatter(vals, idx, *, num_rows):
+        calls["scatter_rows"].append((vals, idx, num_rows))
+        return scatter(vals, idx, num_rows=num_rows)
+
+    with swapped_point_ops(rec_fps, rec_gather, rec_scatter, rec_group):
+        with torch.no_grad():
+            predict()
+        predict_calls = {k: list(v) for k, v in calls.items()}
+        calls["scatter_rows"].clear()
+        step()
+    return ([fps_call_row(*c) for c in predict_calls["fps"]],
+            [row_fn(*c) for row_fn, c in predict_calls["gather_rows"]],
+            [scatter_call_row(*c) for c in calls["scatter_rows"]])
+
+
 def partseg_stage_ms(pipe, dev, runs=5):
     """Mean ms of a device-resident predict's stages, by events around the
     model's own calls (wrapped here only): FPS (with the picked points'
@@ -2527,8 +2598,6 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
     it. Returns (fps rows, gather rows, scatter rows)."""
     import torch
     from lisec_tpu_torch.api import infer
-    from lisec_tpu_torch.ops.cuda import fps as fk
-    from lisec_tpu_torch.ops.cuda import gather_rows as gr
     from lisec_tpu_torch.training.losses import cross_entropy
     for b in (16, 1):
         batch = partseg_batch(serve_pipe, serve_cfg, b)
@@ -2579,44 +2648,9 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
          host_clock_clouds_per_s=b * 1e3 / host_ms,
          **{f"{k}_ms": v for k, v in parts.items()})
 
-    # Record what one batch-16 predict and one train step hand the kernels:
-    # the gather kernel's launches in their order, plain gathers and
-    # groupings.
-    calls = {"fps": [], "gather_rows": [], "scatter_rows": []}
-    gather, scatter = gr.gather_rows, gr.scatter_rows   # before the swap
-    group = gr.group_and_decorate
-
-    fps_gather = fk.fps_gather                         # before the swap
-
-    def rec_fps(points, mask, m):
-        calls["fps"].append((points, mask, m))
-        return fps_gather(points, mask, m)
-
-    def rec_gather(src, idx):
-        calls["gather_rows"].append((gather_call_row, (src.detach(), idx)))
-        return gather(src, idx)
-
-    def rec_group(xyz, features, centers, idx):
-        calls["gather_rows"].append((grouping_call_row, (
-            xyz, None if features is None else features.detach(), centers,
-            idx)))
-        return group(xyz, features, centers, idx)
-
-    def rec_scatter(vals, idx, *, num_rows):
-        calls["scatter_rows"].append((vals, idx, num_rows))
-        return scatter(vals, idx, num_rows=num_rows)
-
-    dev = serve_pipe.device_batch(partseg_batch(serve_pipe, serve_cfg, 16))
-    with swapped_point_ops(rec_fps, rec_gather, rec_scatter, rec_group):
-        with torch.no_grad():
-            serve_pipe.predict(dev)
-        predict_calls = {k: list(v) for k, v in calls.items()}
-        calls["scatter_rows"].clear()
-        partseg_loss_and_grads(pipe, train_batch)
-    rows = (
-        [fps_call_row(*c) for c in predict_calls["fps"]],
-        [row_fn(*c) for row_fn, c in predict_calls["gather_rows"]],
-        [scatter_call_row(*c) for c in calls["scatter_rows"]])
+    rows = point_kernel_rows(lambda: serve_pipe.predict(
+        serve_pipe.device_batch(partseg_batch(serve_pipe, serve_cfg, 16))),
+        lambda: partseg_loss_and_grads(pipe, train_batch))
     for kernel, per_call in zip(("fps", "gather_rows", "scatter_rows"), rows):
         for i, call in enumerate(per_call):
             emit("partseg_kernel", kernel=kernel, call=i, **call)
@@ -3095,6 +3129,658 @@ def phase_rangeseg_timing(serve_pipe, cfg, train_pipe, train_batch):
         train_paint
 
 
+# -- classification: PointNet and PointNet++ on ModelNet40 -------------------
+
+POINTNET_CLS_CFG = os.path.join(ROOT, "configs",
+                                "pointnet_cls_fixture_conv.yaml")
+POINTNET_CLS_TINY_CFG = os.path.join(ROOT, "configs",
+                                     "pointnet_modelnet40_tiny.yaml")
+POINTNET2_CLS_CFG = os.path.join(ROOT, "configs", "pointnet2_modelnet40.yaml")
+NO_LAUNCHES = {"pillar_canvas_fused": 0, "segment_paint": 0,
+               "segment_unpaint": 0, "spread_accumulate": 0, "fps": 0,
+               "gather_rows": 0, "scatter_rows": 0}
+# A PointNet2Cls predict: each set abstraction's FPS and grouping (SA1's
+# on xyz alone); no feature propagation, so no other gather. A train step
+# adds SA2's grouping backward into SA1's features (xyz takes no
+# gradient, so SA1's grouping has no backward).
+CLS_LAUNCHES_PER_PREDICT = {**NO_LAUNCHES, "fps": 2, "gather_rows": 2}
+CLS_LAUNCHES_PER_TRAIN_STEP = {**CLS_LAUNCHES_PER_PREDICT, "scatter_rows": 1}
+# PointNet's first f32 step on the card against the exact (f64) step: every
+# gradient within this fraction of its L2 norm. On the H100 the card's
+# read at most 1.2e-3 and the CPU's own f32 step up to 5.4e-3 of it
+# (``pointnet_step_against_cpu``), so the card's is not held to the CPU's.
+POINTNET_F32_GRAD_LIMIT = 2e-3
+
+
+def cls_config(path, num_steps=TRAIN_STEPS, log_every=1):
+    """A full-width classification config on the ModelNet40 fixture (the
+    repository holds no ModelNet40 files); the overrides are no widths
+    (checkpoints are not ported; augmentation stays on)."""
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    return apply_overrides(load_config(path), [
+        "data.fixture=true", "data.fixture_size=512", 'train.ckpt_dir=""',
+        f"train.num_steps={num_steps}", f"train.log_every={log_every}"])
+
+
+def check_cls_outputs(out, b, num_classes, what):
+    import torch
+    logits, labels = out["logits"], out["labels"]
+    if logits.shape != (b, num_classes) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: logits {tuple(logits.shape)}")
+    if labels.dtype != torch.int32 or labels.min() < 0 \
+            or labels.max() >= num_classes:
+        raise AssertionError(f"{what}: labels")
+
+
+def cls_loss_and_grads(pipe, batch):
+    """Train-mode ``pipe.loss`` of a batch and its gradients (on the
+    pipeline's device)."""
+    import torch
+    pipe.model.train()
+    pipe.model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, aux = pipe.loss(pipe.device_batch(batch))
+        loss.backward()
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize()
+    return (loss.detach(), aux["acc"].detach(),
+            {n: p.grad.clone() for n, p in pipe.model.named_parameters()})
+
+
+def worst_grad(grads, ref):
+    """The largest relative L2 difference of a gradient and its name."""
+    worst, name = 0.0, ""
+    for pname, g in grads.items():
+        r = ref[pname]
+        rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, name = rel, pname
+    return worst, name
+
+
+def cls_train_steps(name, pipe, cfg, per_step):
+    """``TRAIN_STEPS`` train steps from ``init_state`` through
+    ``train_step`` on augmented fixture batches, the launch counts set to
+    0 just before and read just after; finite metrics, every tensor
+    moved. Returns (first batch, starting state, launches)."""
+    import torch
+    from lisec_tpu_torch.data.collate import make_batches
+    if not cfg.data.augment.enabled or cfg.train.schedule != "step" \
+            or cfg.train.optimizer != "adam":
+        raise AssertionError(f"{name}: Adam, the step schedule and "
+                             "augmentation must be on")
+    pipe.init_state(cfg.train.seed)
+    batches = make_batches(pipe.make_dataset("train"), cfg.budget,
+                           cfg.train.batch_size, shuffle=True,
+                           seed=cfg.train.seed,
+                           augment_fn=pipe.augment_fn("train"))
+    first = next(batches)
+    start = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+    zero_all_launches()
+    with torch.enable_grad():
+        auxes = [pipe.train_step(first if i == 0 else next(batches))
+                 for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{name} train launches {launches} in "
+                             f"{TRAIN_STEPS} steps, expected {want}")
+    auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
+    for a in auxes:
+        if not all(v == v and abs(v) != float("inf") for v in a.values()):
+            raise AssertionError(f"{name} train step: non-finite {a}")
+    stuck = [k for k, v in pipe.model.state_dict().items()
+             if torch.equal(v, start[k])]
+    if stuck or pipe.step != TRAIN_STEPS:
+        raise AssertionError(f"{name} train step: unchanged {stuck}, "
+                             f"step {pipe.step}")
+    emit("cls_train_path", config=name, batch=cfg.train.batch_size,
+         steps=TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         per_step=auxes, tensors_moved=len(start))
+    return first, start, launches
+
+
+def cls_short_train(name, path):
+    """``lisec_tpu_torch.train`` of 40 steps from seed initialisation: the
+    mean of the last two logged losses below the first step's (the
+    feature T-Net's regulariser grows over the first steps, so 8 are too
+    few to see the loss fall)."""
+    import torch
+    import lisec_tpu_torch
+    with torch.enable_grad():
+        trained, history = lisec_tpu_torch.train(cls_config(path, 40, 10),
+                                                 progress=False)
+    torch.cuda.synchronize()
+    if len(history) != 5 or trained.step != 40:
+        raise AssertionError(f"{name} train(): {len(history)} records")
+    if not (history[-1]["loss"] + history[-2]["loss"]) / 2 \
+            < history[0]["loss"]:
+        raise AssertionError(f"{name} train() loss did not fall: "
+                             f"{[r['loss'] for r in history]}")
+    emit("train_entry_point", config=name, steps=40,
+         loss_per_logged_step={r["step"]: r["loss"] for r in history},
+         acc_per_logged_step={r["step"]: r["acc"] for r in history},
+         lr={r["step"]: r["lr"] for r in history})
+
+
+def phase_pointnet_cls():
+    """PointNet classification at full width
+    (``configs/pointnet_cls_fixture_conv.yaml``: both T-Nets, 1,024
+    points, 40 classes, seed weights, fixture clouds): predict through
+    ``infer`` at batch 32 and 1 with every launch count 0 (PointNet runs
+    no kernel); ``pointnet_modelnet40_tiny`` on the card against the CPU;
+    train steps at batch 32 (Adam, step schedule, augmentation), the
+    first step's loss and gradients against the same step on the CPU in
+    f64 (dropout the identity); a short ``train(cfg)``. Returns (pipe, cfg,
+    first train batch)."""
+    import torch
+    from lisec_tpu_torch.api import build_model, infer, load_config
+    name = "pointnet_cls_fixture_conv"
+    cfg = cls_config(POINTNET_CLS_CFG)
+    pipe = build_model(cfg)                        # weights from seed 0
+    if [t.k for t in pipe.model.tnets] != [3, 64] \
+            or cfg.budget.max_points != 1024 or cfg.data.num_classes != 40:
+        raise AssertionError(f"{name}: not the full-width network")
+    for b in (cfg.train.batch_size, 1):
+        batch = partseg_batch(pipe, cfg, b)
+        zero_all_launches()
+        out = infer(pipe, batch)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        if launches != NO_LAUNCHES:
+            raise AssertionError(f"{name} predict launched {launches}")
+        check_cls_outputs(out, b, cfg.data.num_classes, name)
+        emit("cls_main_path", config=name, batch=b, launches=launches,
+             logits_max_abs=float(out["logits"].abs().max()),
+             accuracy_seed_weights=float(
+                 (out["labels"].cpu().numpy() == batch["label"]).mean()))
+
+    # pointnet_modelnet40_tiny (seed-initialised) on the card against the
+    # CPU: logits to 1e-4 of the largest, labels equal.
+    tiny = load_config(POINTNET_CLS_TINY_CFG)
+    outs = []
+    for d in ("cuda", "cpu"):
+        p = build_model(tiny, d)
+        batch = partseg_batch(p, tiny, tiny.train.batch_size, "train")
+        outs.append({k: v.cpu() for k, v in infer(p, batch, d).items()})
+    diff = float((outs[0]["logits"] - outs[1]["logits"]).abs().max())
+    scale = float(outs[1]["logits"].abs().max())
+    if diff > 1e-4 * scale or not torch.equal(outs[0]["labels"],
+                                              outs[1]["labels"]):
+        raise AssertionError(f"pointnet_modelnet40_tiny cuda vs cpu: logits "
+                             f"{diff} (largest {scale}) or labels differ")
+    emit("tiny_vs_cpu", config="pointnet_modelnet40_tiny",
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         logits_max_abs_diff=diff, logits_max_abs=scale, labels_equal=True)
+
+    first, start, _ = cls_train_steps(name, pipe, cfg, NO_LAUNCHES)
+    # The first step against the exact one (the CPU's in f64): in f64 the
+    # loss within 1e-5 relative and every gradient within 1e-3 of its L2
+    # norm; in f32 the loss within 1e-5 of the CPU's f32 loss, every
+    # gradient within POINTNET_F32_GRAD_LIMIT of the exact one, and the
+    # gradients that are 0 in exact arithmetic under 1e-5 of the global
+    # norm.
+    report = pointnet_step_against_cpu(pipe, cfg, first, start)
+    emit("train_vs_cpu", config=name, dropout="identity",
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, **report)
+    f32, f64 = report["float32"], report["float64"]
+    if f64["card_loss_rel_diff"] > 1e-5 or f64["card_worst_rel_l2"] > 1e-3 \
+            or f32["card_loss_rel_diff"] > 1e-5 \
+            or f32["card_worst_rel_l2"] > POINTNET_F32_GRAD_LIMIT \
+            or max(f32["card_zero_in_exact_arithmetic"].values()) > 1e-5:
+        raise AssertionError(f"{name} card vs cpu: {report}")
+    cls_short_train(name, POINTNET_CLS_CFG)
+    pipe.model.load_state_dict(start)
+    return pipe, cfg, first
+
+
+def pointnet_step_against_cpu(pipe, cfg, first, start):
+    """The first train step (dropout the identity) on the card and on the
+    CPU, in f32 (the path the steps run) and in f64, each gradient read
+    against the CPU's f64 step, the exact one. In f32 the layers before
+    the global max-pool hold gradients that are small sums of large
+    terms (a train-mode BN's backward over 32,768 rows, whose terms
+    cancel), so each device's f32 step sits some way from the exact one
+    and the two from each other: the CPU's own f32 step is read beside
+    the card's as that witness. A tensor whose f64 norm is under
+    1e-9 of the global norm has no gradient in exact arithmetic (the
+    T-Nets' at their identity start; the global feature's last BN bias,
+    whose every path runs into the head's train-mode BN): its norm over
+    the global norm is read instead."""
+    import numpy as np
+    import torch
+    from lisec_tpu_torch.api import build_model
+    cpu = build_model(cfg, "cpu")
+    rate = pipe.model.head.dropout_rate
+    pipe.model.head.dropout_rate = cpu.model.head.dropout_rate = 0.0
+    steps = {}
+    for dtype in (torch.float32, torch.float64):
+        batch = {**first, "points": first["points"].astype(
+            np.float64 if dtype == torch.float64 else np.float32)}
+        for p in (pipe, cpu):
+            p.model.load_state_dict({k: v.to(p.device)
+                                     for k, v in start.items()})
+            p.model.to(dtype)
+        steps[dtype] = [cls_loss_and_grads(p, batch) for p in (pipe, cpu)]
+        for p in (pipe, cpu):
+            p.model.float()
+    pipe.model.head.dropout_rate = rate
+    pipe.model.load_state_dict(start)
+    loss64, _, exact = steps[torch.float64][1]
+    total = float(torch.sqrt(sum((g ** 2).sum() for g in exact.values())))
+    report = {"gradients": len(exact), "global_norm": total,
+              "cpu_f64_loss": float(loss64)}
+    for dtype, ((loss_k, acc_k, grads_k), (loss_c, acc_c, grads_c)) in \
+            steps.items():
+        rel = {"card": {}, "cpu": {}}
+        zero = {"card": {}, "cpu": {}}
+        for k, ref in exact.items():
+            for dev, g in (("card", grads_k[k]), ("cpu", grads_c[k])):
+                g = g.cpu().double()
+                if float(ref.norm()) < 1e-9 * total:
+                    zero[dev][k] = float(g.norm()) / total
+                else:
+                    rel[dev][k] = float((g - ref).norm() / ref.norm())
+        row = {"card_loss": float(loss_k), "cpu_loss": float(loss_c),
+               "card_loss_rel_diff": abs(float(loss_k) / float(loss_c) - 1),
+               "card_acc": float(acc_k), "cpu_acc": float(acc_c)}
+        for dev in ("card", "cpu"):
+            worst = max(rel[dev], key=rel[dev].get)
+            row.update({
+                f"{dev}_worst_grad": worst,
+                f"{dev}_worst_rel_l2": rel[dev][worst],
+                f"{dev}_above_1e_3": {k: v for k, v in rel[dev].items()
+                                      if v > 1e-3},
+                f"{dev}_zero_in_exact_arithmetic": zero[dev]})
+        if dtype == torch.float32:
+            row["card_vs_cpu_rel_l2"] = {
+                k: float((grads_k[k].cpu() - grads_c[k]).norm()
+                         / grads_c[k].norm().clamp_min(1e-30))
+                for k in rel["card"]}
+        report[str(dtype).split(".")[1]] = row
+    return report
+
+
+def checked_point_ops(worst, case):
+    """The point kernels' callers on wrappers that run each kernel and its
+    plain version on the same call and raise unless they agree to the bit
+    (FPS: picks, picked xyz and mask; the groupings and gathers; the
+    scatter), each call a ``kernel_check`` line."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    fps_gather, gather = fk.fps_gather, gr.gather_rows
+    scatter, group = gr.scatter_rows, gr.group_and_decorate
+
+    def same(got, ref):
+        if isinstance(got, tuple):
+            return all(same(a, b) for a, b in zip(got, ref))
+        if got.dtype == torch.float32:
+            got, ref = got.view(torch.int32), ref.view(torch.int32)
+        return got.shape == ref.shape and torch.equal(got, ref)
+
+    def checked(kernel, fn, plain, shapes):
+        def call(*args, **kw):
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ref = plain(*args, **kw)
+            if not same(got, ref):
+                raise AssertionError(f"{kernel} {case} "
+                                     f"{shapes(*args, **kw)}: differs from "
+                                     "the plain version")
+            if kernel == "scatter_rows":
+                worst["scatter_rows"] = max(worst["scatter_rows"], float(
+                    (got - ref).abs().max()))
+            emit("kernel_check", kernel=kernel, case=f"cls_{case}",
+                 call=shapes(*args, **kw), bit_equal=True)
+            return got
+        return call
+
+    return swapped_point_ops(
+        checked("fps", fps_gather, fk.fps_gather_reference,
+                lambda p, m, k: {"points": list(p.shape), "samples": k,
+                                 "valid_points_per_cloud":
+                                     m.sum(1).tolist()[:8]}),
+        checked("gather_rows", gather, gr.gather_rows_reference,
+                lambda s, i: {"src": list(s.shape), "ids": list(i.shape)}),
+        checked("scatter_rows", scatter, gr.scatter_rows_reference,
+                lambda v, i, num_rows: {"vals": list(v.shape),
+                                        "num_rows": num_rows}),
+        checked("gather_rows", group, gr.group_and_decorate_reference,
+                lambda x, f, c, i: {"xyz": list(x.shape), "features":
+                                    None if f is None else list(f.shape),
+                                    "ids": list(i.shape)}))
+
+
+def phase_pointnet2_cls():
+    """PointNet++ classification at full width
+    (``configs/pointnet2_modelnet40.yaml`` on the fixture: SSG, 1,024
+    points, 40 classes, batch 24, augmentation; seed weights): ``fps``
+    and ``gather_rows`` bit-equal to their plain versions on the path's
+    calls at batch 24, on fixture clouds, masked tails (down to one valid
+    point and none) and a ties-heavy cloud on a coarse grid; predict
+    through ``infer`` at batch 24 and 1 (2 ``fps`` and 2 ``gather_rows``
+    launches, nothing else), the kernel route against the plain route;
+    train steps at batch 24 (1 ``scatter_rows`` a step, checked bit-equal
+    too), the first step against the plain route; a short
+    ``train(cfg)``. Returns (pipe, cfg, first train batch, launches of
+    the batch-24 predict, launches of the train steps, the largest
+    |difference| per kernel)."""
+    import numpy as np
+    import torch
+    from lisec_tpu_torch.api import build_model, infer
+    name = "pointnet2_modelnet40"
+    cfg = cls_config(POINTNET2_CLS_CFG)
+    if cfg.train.batch_size != 24 or cfg.budget.max_points != 1024 \
+            or cfg.model.params.get("width", 1) != 1 \
+            or cfg.data.augment.dropout_max != 0.875:
+        raise AssertionError(f"{name}: not the full-width config")
+    pipe = build_model(cfg)                        # weights from seed 0
+    b = cfg.train.batch_size
+    worst = {"fps": 0.0, "gather_rows": 0.0, "scatter_rows": 0.0}
+
+    fixture = partseg_batch(pipe, cfg, b)
+    masked = {k: v.copy() for k, v in fixture.items()}
+    for i, valid in enumerate((700, 300, 1, 0)):    # SA1 picks 512
+        masked["point_mask"][i, valid:] = False
+    ties = {k: v.copy() for k, v in fixture.items()}
+    ties["points"] = (np.round(ties["points"] * 4) / 4).astype(np.float32)
+    for case, batch in (("fixture", fixture), ("masked_tails", masked),
+                        ("ties", ties)):
+        with checked_point_ops(worst, case), torch.no_grad():
+            pipe.predict(pipe.device_batch(batch))
+
+    predict_launches = {}
+    for bb in (b, 1):
+        batch = partseg_batch(pipe, cfg, bb)
+        zero_all_launches()
+        out = infer(pipe, batch)
+        torch.cuda.synchronize()
+        launches = predict_launches[bb] = all_launches()
+        if launches != CLS_LAUNCHES_PER_PREDICT:
+            raise AssertionError(f"{name} predict launches {launches}, "
+                                 f"expected {CLS_LAUNCHES_PER_PREDICT}")
+        check_cls_outputs(out, bb, cfg.data.num_classes, name)
+        before = all_launches()
+        with plain_point_ops():
+            plain = infer(pipe, batch)
+        if all_launches() != before:
+            raise AssertionError("the plain route launched a kernel")
+        diff = float((out["logits"] - plain["logits"]).abs().max())
+        scale = float(plain["logits"].abs().max())
+        if diff > 1e-5 * scale or not torch.equal(out["labels"],
+                                                  plain["labels"]):
+            raise AssertionError(f"{name} kernel vs plain route: logits "
+                                 f"differ by {diff} (largest {scale})")
+        emit("cls_main_path", config=name, batch=bb, launches=launches,
+             logits_max_abs=scale, max_abs_diff_vs_plain=diff,
+             logits_bit_equal_to_plain=bool(torch.equal(out["logits"],
+                                                        plain["logits"])),
+             labels_equal_to_plain=True,
+             accuracy_seed_weights=float(
+                 (out["labels"].cpu().numpy() == batch["label"]).mean()))
+
+    first, start, train_launches = cls_train_steps(
+        name, pipe, cfg, CLS_LAUNCHES_PER_TRAIN_STEP)
+    # Kernels against plain versions, dropout the identity: FPS and the
+    # gathers are exact on both routes and the scatter adds in the same
+    # order, so the loss within 1e-5 relative and every gradient within
+    # 1e-3 of its L2 norm (bit-equal expected). The kernel run's calls
+    # are checked bit-equal on the way.
+    pipe.model.head.dropout_rate = 0.0
+    pipe.model.load_state_dict(start)
+    with checked_point_ops(worst, "train_step"):
+        loss_k, acc_k, grads_k = cls_loss_and_grads(pipe, first)
+    pipe.model.load_state_dict(start)
+    before = all_launches()
+    with plain_point_ops():
+        loss_p, acc_p, grads_p = cls_loss_and_grads(pipe, first)
+    if all_launches() != before:
+        raise AssertionError("the plain run launched a kernel")
+    pipe.model.head.dropout_rate = 0.4
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst_g, worst_name = worst_grad(grads_k, grads_p)
+    emit("train_vs_plain", config=name, dropout="identity",
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         loss=float(loss_k), plain_loss=float(loss_p), loss_rel_diff=rel_loss,
+         worst_grad_rel_l2=worst_g, worst_grad=worst_name,
+         gradients=len(grads_k),
+         gradients_bit_equal=all(torch.equal(grads_k[k], grads_p[k])
+                                 for k in grads_k))
+    if rel_loss > 1e-5 or float(acc_k) != float(acc_p) or worst_g > 1e-3:
+        raise AssertionError(f"{name} kernel vs plain: loss {rel_loss}, "
+                             f"gradient of {worst_name} {worst_g}")
+    cls_short_train(name, POINTNET2_CLS_CFG)
+    pipe.model.load_state_dict(start)
+    return pipe, cfg, first, predict_launches[b], train_launches, worst
+
+
+def first_batch_against_record(out):
+    """The snapshot's first held-out batch against the JAX package's
+    predict of it (``docs/convergence/pphard_trained_outputs.npz``): per
+    frame the kept counts, and each recorded box's best BEV IoU with a
+    kept box and that box's score less the recorded one."""
+    import numpy as np
+    from lisec_tpu_torch.eval.detection import iou_matrix_np
+    ref = np.load(os.path.join(ROOT, "docs", "convergence",
+                               "pphard_trained_outputs.npz"))
+    frames = []
+    for i in range(len(ref["valid"])):
+        rv, pv = ref["valid"][i], out["valid"][i]
+        iou = iou_matrix_np(ref["boxes"][i][rv].astype(np.float64),
+                            out["boxes"][i][pv].astype(np.float64), "bev")
+        j = iou.argmax(1) if iou.size else np.zeros(int(rv.sum()), int)
+        frames.append({
+            "kept": int(pv.sum()), "recorded": int(rv.sum()),
+            "best_iou": iou.max(1).round(4).tolist() if iou.size else [],
+            "score_minus_recorded": (out["scores"][i][pv][j]
+                                     - ref["scores"][i][rv]).round(4)
+            .tolist() if iou.size else []})
+    return frames
+
+
+# The JAX package's ``evaluate`` of the trained snapshot over the same 256
+# held-out frames, on the CPU (``JAX_PLATFORMS=cpu python -m
+# tests.test_torch_eval``): with its production encoder kernel, whose
+# bf16 canvas routes each cell's max of u + BIG as one bf16 value, and
+# with its reference encoder path (``model.params.fast_encoder=false``),
+# an exact cell max as the port's encoder computes it.
+JAX_CPU_SNAPSHOT_EVAL = {
+    "production_encoder": {
+        "recall@0.5": 0.7412109375, "mean_detections": 10.08203125,
+        "class0_3d_ap_easy_official": 93.23753188383242,
+        "class0_3d_ap_moderate_official": 94.39488212969523,
+        "class0_3d_ap_hard_official": 91.05650559899424},
+    "reference_encoder": {
+        "recall@0.5": 0.74267578125, "mean_detections": 10.04296875,
+        "class0_3d_ap_easy_official": 95.28549719366366,
+        "class0_3d_ap_moderate_official": 94.752786361657,
+        "class0_3d_ap_hard_official": 91.42764319126812},
+}
+SNAPSHOT_APS = tuple(f"class0_3d_ap_{b}_official"
+                     for b in ("easy", "moderate", "hard"))
+
+
+def snapshot_gaps(got, want):
+    """recall@0.5 and each official 3D AP less ``want``'s, and the
+    detections a frame over ``want``'s less 1."""
+    return {"recall@0.5": got["recall@0.5"] - want["recall@0.5"],
+            "mean_detections_rel": got["mean_detections"]
+            / want["mean_detections"] - 1,
+            **{k: got[k] - want[k] for k in SNAPSHOT_APS}}
+
+
+def phase_evaluate(partseg_pipe, rangeseg_pipe, pn_pipe, pn2_pipe):
+    """``evaluate`` on the card. The trained PointPillars snapshot in
+    ``configs/pointpillars_fixture_hard_conv.yaml`` (batch 4) through
+    ``lisec_tpu_torch.evaluate`` over the whole 256-frame held-out split,
+    held to the JAX package's evaluation with the exact encoder
+    (``JAX_CPU_SNAPSHOT_EVAL``): recall@0.5 within 0.02, each official
+    3D AP within 2.0 points, detections a frame within 5%. Read beside
+    it: the JAX package's record of the snapshot on the TPU
+    (``docs/convergence/pphard_eval.json``) and its production encoder's
+    evaluation on the CPU, both made by the encoder kernel's bf16
+    routing; the first batch beside the JAX predict of it on the TPU.
+    Then ``evaluate(max_batches=2)`` of both classifiers, part and range
+    segmentation and SECOND (seed weights, full width), the kernel route
+    against the plain route: the same metrics. Prints the wall
+    seconds."""
+    import torch
+    import lisec_tpu_torch
+    from lisec_tpu_torch.api import build_model
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    from lisec_tpu_torch.weights import load_weights_npz
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(load_config(TRAIN_CFG), ['train.ckpt_dir=""'])
+    pipe = build_model(cfg)
+    load_weights_npz(pipe.model, WEIGHTS)
+    with open(os.path.join(ROOT, "docs", "convergence",
+                           "pphard_eval.json")) as f:
+        tpu_record = json.load(f)
+    first = next(pipe.eval_outputs("val", 1))[1]
+    zero_all_launches()
+    t0 = time.perf_counter()
+    got = lisec_tpu_torch.evaluate(cfg, pipe)
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    frames = len(pipe.make_dataset("val"))
+    gaps = snapshot_gaps(got, JAX_CPU_SNAPSHOT_EVAL["reference_encoder"])
+    emit("evaluate", config="pointpillars_fixture_hard_conv",
+         weights="pointpillars_fixture_hard.npz", split="val", frames=frames,
+         batch=cfg.train.batch_size, metrics=got,
+         jax_cpu_reference_encoder=JAX_CPU_SNAPSHOT_EVAL["reference_encoder"],
+         gaps=gaps,
+         gaps_to_jax_cpu_production_encoder=snapshot_gaps(
+             got, JAX_CPU_SNAPSHOT_EVAL["production_encoder"]),
+         jax_tpu_record=tpu_record,
+         gaps_to_jax_tpu_record=snapshot_gaps(got, tpu_record),
+         launches=launches, seconds=seconds,
+         first_batch=first_batch_against_record(first))
+    if frames != 256 or launches["pillar_canvas_fused"] != frames // 4 \
+            or abs(gaps["recall@0.5"]) > 0.02 \
+            or abs(gaps["mean_detections_rel"]) > 0.05 \
+            or any(abs(gaps[k]) > 2.0 for k in SNAPSHOT_APS):
+        raise AssertionError(f"snapshot evaluation off the JAX package's "
+                             f"with the exact encoder: {gaps}")
+
+    second = build_model(train_config(SECOND_TRAIN_CFG, 1))
+    torch.backends.cudnn.deterministic = True
+    for name, p, plain_ops in (
+            ("pointnet_cls_fixture_conv", pn_pipe, None),
+            ("pointnet2_modelnet40", pn2_pipe, plain_point_ops),
+            ("pointnet2_partseg_fixture_conv", partseg_pipe,
+             plain_point_ops),
+            ("rangeseg_fixture_conv", rangeseg_pipe, plain_segment_ops),
+            ("second_fixture_conv", second, plain_segment_ops)):
+        zero_all_launches()
+        t0 = time.perf_counter()
+        kernel = p.evaluate(max_batches=2)
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+        plain = kernel
+        if plain_ops is not None:
+            with plain_ops():
+                plain = p.evaluate(max_batches=2)
+            if all_launches() != launches:
+                raise AssertionError("the plain route launched a kernel")
+        elif launches != NO_LAUNCHES:
+            raise AssertionError(f"{name} evaluate launched {launches}")
+        if kernel.keys() != plain.keys() or any(
+                abs(kernel[k] - plain[k]) > 1e-6 for k in kernel):
+            raise AssertionError(f"{name} evaluate: kernel route {kernel}, "
+                                 f"plain route {plain}")
+        emit("evaluate", config=name, weights="seed", max_batches=2,
+             batch=p.cfg.train.batch_size, metrics=kernel,
+             plain_route_equal=True, launches=launches, seconds=seconds)
+    torch.backends.cudnn.deterministic = False
+    emit("evaluate_wall", seconds=time.perf_counter() - t_phase)
+
+
+def cls_train_parts(pipe, batch):
+    """Mean ms of a train step's forward, loss, backward and optimizer
+    update, by CUDA events (2 warm-ups, 5 runs)."""
+    import torch
+    from lisec_tpu_torch.models.pointnet import orthogonality_loss
+    from lisec_tpu_torch.training.losses import cross_entropy
+    dev = pipe.device_batch(batch)
+    parts = dict.fromkeys(("forward", "loss", "backward", "optimizer"), 0.0)
+    with torch.enable_grad():
+        for it in range(7):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            pipe.model.train()
+            pipe.optimizer.zero_grad()
+            ev[0].record()
+            out = pipe.model(dev["points"], dev["point_mask"],
+                             generator=pipe.dropout_generator)
+            ev[1].record()
+            loss = cross_entropy(out["logits"], dev["label"])
+            if out["feature_transform"] is not None:
+                loss = loss + pipe.reg_weight * orthogonality_loss(
+                    out["feature_transform"])
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            pipe.optimizer.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            if it >= 2:
+                for i, k in enumerate(parts):
+                    parts[k] += ev[i].elapsed_time(ev[i + 1]) / 5
+    return parts
+
+
+def phase_cls_timing(runs):
+    """Each classifier's predict at its training batch and at 1 (from host
+    numpy and device-resident) and its train step with its parts; then
+    every ``fps``, ``gather_rows`` and ``scatter_rows`` call of a
+    batch-24 PointNet2Cls predict and of its train step's backward, on the
+    tensors the path hands them. ``runs``: (name, pipe, cfg, first train
+    batch) of each. Returns (fps rows, gather rows, scatter rows)."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    for name, pipe, cfg, first in runs:
+        for b in (cfg.train.batch_size, 1):
+            batch = partseg_batch(pipe, cfg, b)
+            ms = cuda_ms(lambda: infer(pipe, batch), iters=10)
+            dev = pipe.device_batch(batch)
+            with torch.no_grad():
+                ms_dev = cuda_ms(lambda: pipe.predict(dev), iters=10)
+            emit("cls_predict", config=name, batch=b, ms_per_batch=ms,
+                 clouds_per_s=b * 1e3 / ms, device_resident_ms=ms_dev,
+                 device_resident_clouds_per_s=b * 1e3 / ms_dev)
+        b = cfg.train.batch_size
+        with torch.enable_grad():
+            ms_step = cuda_ms(lambda: pipe.train_step(first), iters=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                pipe.train_step(first)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        emit("cls_train_step", config=name, batch=b, ms_per_step=ms_step,
+             clouds_per_s=b * 1e3 / ms_step, host_clock_ms_per_step=host_ms,
+             host_clock_clouds_per_s=b * 1e3 / host_ms,
+             **{f"{k}_ms": v for k, v in cls_train_parts(pipe,
+                                                         first).items()})
+
+    # What one batch-24 PointNet2Cls predict and one train step hand the
+    # kernels.
+    _, pipe, cfg, first = runs[1]
+    dev = pipe.device_batch(partseg_batch(pipe, cfg, cfg.train.batch_size))
+    rows = point_kernel_rows(lambda: pipe.predict(dev),
+                             lambda: cls_loss_and_grads(pipe, first))
+    for kernel, per_call in zip(("fps", "gather_rows", "scatter_rows"), rows):
+        for i, call in enumerate(per_call):
+            emit("cls_kernel", config="pointnet2_modelnet40", kernel=kernel,
+                 call=i, **call)
+    if [len(r) for r in rows] != [2, 2, 1] or sum(
+            "centers" in r for r in rows[1]) != 2:
+        raise AssertionError(f"cls kernel calls {[len(r) for r in rows]}")
+    return rows
+
+
 # What one call of each wrapper launches where the device-time phase
 # checks it, by kernel name.
 DEVICE_LAUNCHES = {
@@ -3330,6 +4016,13 @@ def main() -> int:
     rangeseg_fixture, rangeseg_scan, rangeseg_train_paint = \
         phase_rangeseg_timing(rangeseg_pipe, rangeseg_cfg,
                               rangeseg_train[0], rangeseg_train[2])
+    pn_pipe, pn_cfg, pn_first = phase_pointnet_cls()
+    (pn2_pipe, pn2_cfg, pn2_first, cls_predict_launches,
+     cls_train_launches, cls_err) = phase_pointnet2_cls()
+    phase_evaluate(partseg_pipe, rangeseg_pipe, pn_pipe, pn2_pipe)
+    cls_rows = phase_cls_timing((
+        ("pointnet_cls_fixture_conv", pn_pipe, pn_cfg, pn_first),
+        ("pointnet2_modelnet40", pn2_pipe, pn2_cfg, pn2_first)))
     phase_profile_listing()
     phase_device_times()
 
@@ -3406,15 +4099,16 @@ def main() -> int:
         **rangeseg(name)})
     # The point kernels: FPS and the gathers as the calls of one PointNet++
     # predict at batch 16 together, the scatters as the three of one train
-    # step at batch 16 (the gathers' backward).
-    for info, rows, launches_, err_ in (
+    # step at batch 16 (the gathers' backward). The calls of a PointNet2Cls
+    # predict at batch 24 (the scatter's: of its train step) beside them.
+    for info, rows, launches_, err_, cls in (
             (fk.KERNEL_INFO, fps_rows, partseg_launches["fps"],
-             point_err["fps"]),
+             point_err["fps"], cls_rows[0]),
             (gr.GATHER_INFO, gather_rows_, partseg_launches["gather_rows"],
-             point_err["gather_rows"]),
+             point_err["gather_rows"], cls_rows[1]),
             (gr.SCATTER_INFO, scatter_rows_,
              partseg_train_launches["scatter_rows"],
-             point_err["scatter_rows"])):
+             point_err["scatter_rows"], cls_rows[2])):
         name = info["name"]
         kernels.append({
             **info, "launches": launches_, "max_abs_err": err_,
@@ -3424,7 +4118,14 @@ def main() -> int:
                 partseg_train_launches[name] / TRAIN_STEPS,
             **({"round_floor_ms": sum(c["round_floor_ms"] for c in rows)}
                if info is fk.KERNEL_INFO else {}),
-            "calls": rows})
+            "calls": rows,
+            "launches_per_cls_predict": cls_predict_launches[name],
+            "launches_per_cls_train_step":
+                cls_train_launches[name] / TRAIN_STEPS,
+            "cls_max_abs_err": cls_err[name],
+            ("cls_train_step" if info is gr.SCATTER_INFO
+             else "cls_predict"): summed(cls),
+            "cls_calls": cls})
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

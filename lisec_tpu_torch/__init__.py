@@ -16,15 +16,19 @@ the spread-accumulate kernel under its sparse convs, PointNet++ part
 segmentation, inference and training
 (``configs/pointnet2_partseg_fixture_conv.yaml``), with the
 farthest-point-sampling kernel and the row gather and ordered row
-scatter kernels under its grouping and interpolation, and range-image
+scatter kernels under its grouping and interpolation, range-image
 segmentation on SemanticKITTI, inference and training
 (``configs/rangeseg_semantickitti.yaml``,
 ``configs/rangeseg_fixture_conv.yaml``), whose range projection runs the
 segment paint kernel and whose kNN refinement runs the spread-accumulate
-kernel. Every TPU kernel of the JAX package has its CUDA counterpart.
-Checkpoints, data-parallel training, the detection augmentation and
-evaluation are not ported yet and raise ``NotImplementedError`` when a
-config asks for them. Public API::
+kernel, and ModelNet40 classification, inference and training, with
+PointNet (``configs/pointnet_cls_fixture_conv.yaml``, no kernel) and
+PointNet++ (``configs/pointnet2_modelnet40.yaml``, the sampling and
+gather kernels). Every workload has its ``evaluate`` (accuracy, mIoU,
+recall and KITTI AP). Every TPU kernel of the JAX package has its CUDA
+counterpart. Checkpoints, data-parallel training, the detection
+augmentation, TensorBoard and NaN debugging are not ported yet and
+raise ``NotImplementedError`` when a config asks for them. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")
     pipeline = lisec_tpu_torch.build_model(cfg)          # device="cuda"
@@ -34,6 +38,7 @@ config asks for them. Public API::
 
     cfg = lisec_tpu_torch.apply_overrides(cfg, ["train.num_steps=100"])
     pipeline, history = lisec_tpu_torch.train(cfg)       # device="cuda"
+    metrics = lisec_tpu_torch.evaluate(cfg, pipeline)
 
 Every entry point takes ``device`` (default ``"cuda"``; ``"cpu"`` runs the
 kernels' plain PyTorch versions, as the tests do).
@@ -41,6 +46,7 @@ kernels' plain PyTorch versions, as the tests do).
 
 from lisec_tpu_torch.api import (
     build_model,
+    evaluate,
     infer,
     load_cloud,
     load_config,
@@ -56,6 +62,7 @@ __all__ = [
     "apply_overrides",
     "build_model",
     "convert_flax_arrays",
+    "evaluate",
     "infer",
     "load_cloud",
     "load_config",

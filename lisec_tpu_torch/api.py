@@ -1,11 +1,12 @@
 """Public Python API (port of ``lisec_tpu/api.py``).
 
-``load_cloud -> preprocess -> build_model -> infer -> boxes/labels``, and
-``train(cfg)``. ``preprocess`` pads to the config budgets on the host;
-``infer`` and ``train`` run the pipeline on its device. The device is
-explicit and defaults to ``"cuda"``; without a card that raises
-(``device="cpu"`` runs the plain PyTorch path). The weights live in the pipeline's model, so ``infer``
-takes no separate state.
+``load_cloud -> preprocess -> build_model -> infer -> boxes/labels``,
+``train(cfg)`` and ``evaluate(cfg)``. ``preprocess`` pads to the config
+budgets on the host; ``infer``, ``train`` and ``evaluate`` run the
+pipeline on its device. The device is explicit and defaults to
+``"cuda"``; without a card that raises (``device="cpu"`` runs the plain
+PyTorch path). The weights live in the pipeline's model, so ``infer``
+and ``evaluate`` take no separate state.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def build_model(cfg: Config, device="cuda"):
     """Build the pipeline object for a config (registry lookup) on
     ``device``."""
     from lisec_tpu_torch.pipelines import (  # noqa: F401
-        detection, partseg, rangeseg)
+        classification, detection, partseg, rangeseg)
     from lisec_tpu_torch.registry import get_pipeline
     return get_pipeline(cfg.model.name)(cfg, device=device)
 
@@ -74,3 +75,10 @@ def train(cfg: Config, device="cuda", progress: bool = True):
     history), the trained weights being the pipeline's model."""
     from lisec_tpu_torch.training.loop import run_training
     return run_training(cfg, device=device, progress=progress)
+
+
+def evaluate(cfg: Config, pipeline=None, device="cuda") -> Dict[str, float]:
+    """The workload's metrics over its held-out split: of ``pipeline``'s
+    weights, or of a new pipeline on ``device`` from ``train.seed``."""
+    from lisec_tpu_torch.training.loop import run_evaluation
+    return run_evaluation(cfg, pipeline=pipeline, device=device)

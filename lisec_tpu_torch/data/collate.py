@@ -50,18 +50,14 @@ def pad_boxes(boxes: np.ndarray, classes: np.ndarray,
 
 
 def pad_to_budget(sample: Dict[str, np.ndarray], budget) -> Dict[str, np.ndarray]:
-    """Pad a raw detection or part-segmentation sample dict to the
-    BudgetConfig shapes. The per-cloud label of classification comes with
-    that workload; a sample that carries it is refused."""
-    if "label" in sample:
-        raise NotImplementedError(
-            "pad_to_budget: 'label' belongs to classification, which is "
-            "not ported yet")
+    """Pad a raw dataset sample dict to the BudgetConfig shapes."""
     out: Dict[str, np.ndarray] = {}
     out.update(pad_points(sample["points"], budget.max_points))
     if "point_labels" in sample:
         out["point_labels"] = pad_labels(
             sample["point_labels"], budget.max_points)
+    if "label" in sample:
+        out["label"] = np.asarray(sample["label"], np.int32)
     if "category" in sample:
         out["category"] = np.asarray(sample["category"], np.int32)
     if "gt_boxes" in sample:

@@ -1,14 +1,15 @@
-"""Synthetic fixtures (copy of ``_unit_shape``, ``make_partseg_cloud``,
-``make_detection_scene``, ``_ray_box_t``, ``make_detection_scene_hard``
-and ``make_semantic_scene`` from ``lisec_tpu/data/fixtures.py``).
+"""Synthetic fixtures (copy of ``_unit_shape``, ``make_cls_cloud``,
+``make_partseg_cloud``, ``make_detection_scene``, ``_ray_box_t``,
+``make_detection_scene_hard`` and ``make_semantic_scene`` from
+``lisec_tpu/data/fixtures.py``).
 
 Real datasets are not shipped, so training, the smoke run and the tests
-draw data from a seed: part-labelled shapes in the unit sphere,
-lidar-like scenes of box-shaped clusters on ground clutter or ray-cast
-scenes with occlusion, and semantically labelled scans. The copy must
-reproduce the JAX package's arrays bit for bit
+draw data from a seed: class-conditioned and part-labelled shapes in the
+unit sphere, lidar-like scenes of box-shaped clusters on ground clutter
+or ray-cast scenes with occlusion, and semantically labelled scans. The
+copy must reproduce the JAX package's arrays bit for bit
 (``tests/test_torch_pointpillars.py``, ``tests/test_torch_partseg.py``,
-``tests/test_torch_rangeseg.py``).
+``tests/test_torch_rangeseg.py``, ``tests/test_torch_cls.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,11 @@ def _unit_shape(rng: np.random.Generator, cls: int, n: int) -> np.ndarray:
     c = rng.choice([-d, d], n)
     return (rng.normal(scale=0.15, size=(n, 3)).astype(np.float32)
             + np.stack([c, np.zeros(n), np.zeros(n)], -1).astype(np.float32))
+
+
+def make_cls_cloud(seed: int, cls: int, n: int) -> np.ndarray:
+    rng = np.random.default_rng(seed * 1009 + cls)
+    return _unit_shape(rng, cls, n)
 
 
 def make_partseg_cloud(

@@ -1,7 +1,7 @@
 """Shared NN blocks (port of ``lisec_tpu/models/common.py``): the
 detectors' and the range segmenter's NCHW ``ConvBNRelu`` and ``Conv``,
-and the point networks' ``SharedMLP`` and ``masked_max`` over
-channels-last rows.
+and the point networks' ``SharedMLP``, ``MLPHead``, ``dropout`` and
+``masked_max`` over channels-last rows.
 
 Parameters are stored in PyTorch's layouts; ``lisec_tpu_torch/weights.py``
 converts the flax ones. ``dtype`` is the compute dtype: inputs and
@@ -10,7 +10,7 @@ kernels are cast to it per layer, as flax does, and parameters stay f32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,13 +58,14 @@ def batch_norm(xf: torch.Tensor, layer: nn.Module, channel_dim: int, *,
                momentum: float = BN_MOMENTUM, eps: float = BN_EPS
                ) -> torch.Tensor:
     """flax's ``BatchNorm(momentum, epsilon)`` (by default the detectors'
-    0.99 and 1e-3) of f32 ``xf`` over every axis but ``channel_dim``,
-    with ``layer``'s ``scale``, ``bias`` and running ``mean`` and
-    ``var``, written out as flax computes it: in ``eval()`` mode with the
-    running statistics; in ``train()`` mode with the batch statistics,
-    the variance as E[x^2] - E[x]^2 clipped at 0, and that biased
-    variance going into the running statistics (``torch.nn.BatchNorm2d``
-    stores the unbiased one). Returns f32; the caller casts."""
+    0.99 and 1e-3) of ``xf`` (f32, or f64 for an f64 model) over every
+    axis but ``channel_dim``, with ``layer``'s ``scale``, ``bias`` and
+    running ``mean`` and ``var``, written out as flax computes it: in
+    ``eval()`` mode with the running statistics; in ``train()`` mode with
+    the batch statistics, the variance as E[x^2] - E[x]^2 clipped at 0,
+    and that biased variance going into the running statistics
+    (``torch.nn.BatchNorm2d`` stores the unbiased one). Returns ``xf``'s
+    type; the caller casts."""
     dims = [d for d in range(xf.dim()) if d != channel_dim % xf.dim()]
     shape = [1] * xf.dim()
     shape[channel_dim] = -1
@@ -183,7 +184,9 @@ class Dense(nn.Linear):
 class BatchNorm(nn.Module):
     """Parameters and running statistics of one flax ``BatchNorm`` over
     the last axis, applied by :func:`batch_norm` with the point networks'
-    momentum 0.9 and eps 1e-5."""
+    momentum 0.9 and eps 1e-5, in the type flax infers from the input's
+    and the parameters' (f32 for a bf16 or f32 input to f32 parameters,
+    f64 for an f64 model)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -193,7 +196,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(x.float(), self, -1, momentum=POINT_BN_MOMENTUM,
+        xf = x.to(torch.promote_types(x.dtype, self.scale.dtype))
+        return batch_norm(xf, self, -1, momentum=POINT_BN_MOMENTUM,
                           eps=POINT_BN_EPS)
 
 
@@ -212,6 +216,47 @@ class SharedMLP(nn.Module):
         for dense, bn in zip(self.dense, self.bn):
             x = torch.relu(bn(dense(x)))
         return x
+
+
+def dropout(h: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``Dropout(rate)`` in training: keep with probability
+    1 - rate, scale by 1 / (1 - rate), the mask drawn from ``generator``
+    on ``h``'s device (torch cannot draw flax's bits)."""
+    if rate == 0.0:
+        return h
+    keep_prob = 1.0 - rate
+    keep = torch.rand(h.shape, generator=generator,
+                      device=h.device) < keep_prob
+    return torch.where(keep, h / keep_prob, 0.0)
+
+
+class MLPHead(nn.Module):
+    """FC head: per hidden width a Dense (without a bias, as BN follows,
+    unless ``hidden_bias``), BatchNorm, ReLU and dropout (rate
+    ``dropout_rate``, in ``train()`` mode only, from the ``generator``
+    the caller passes), then a final Dense with a bias."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 out_dim: int, dropout_rate: float = 0.4,
+                 hidden_bias: bool = False):
+        super().__init__()
+        widths = [in_features, *features]
+        self.dense = nn.ModuleList(
+            [Dense(a, b, bias=hidden_bias)
+             for a, b in zip(widths, widths[1:])]
+            + [Dense(widths[-1], out_dim)])
+        self.bn = nn.ModuleList(BatchNorm(f) for f in features)
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        for dense, bn in zip(self.dense, self.bn):
+            x = torch.relu(bn(dense(x)))
+            if self.training:
+                x = dropout(x, self.dropout_rate, generator)
+        return self.dense[-1](x)
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int

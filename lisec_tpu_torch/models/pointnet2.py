@@ -1,13 +1,16 @@
-"""PointNet++ part segmentation (port of ``lisec_tpu/models/pointnet2.py``).
+"""PointNet++ part segmentation and classification (port of
+``lisec_tpu/models/pointnet2.py``).
 
 Set abstraction (farthest-point sampling -> ball query -> grouping ->
 shared MLP -> max over the neighbours), twice; a global set abstraction;
-feature propagation (3-NN inverse-distance interpolation + skip concat +
-shared MLP) back to the input points; a per-point head with the category
-one-hot. SSG by default, MSG (several radii per level, concatenated) with
-``msg=True``. Points, masks and features are channels-last, as in the
-JAX package; the sampling and every gather run the hand-written kernels
-on the card (``ops/cuda/fps.py``, ``ops/cuda/gather_rows.py``).
+for part segmentation, feature propagation (3-NN inverse-distance
+interpolation + skip concat + shared MLP) back to the input points and a
+per-point head with the category one-hot; for classification, an FC
+head on the global feature. SSG by default, MSG (several radii per
+level, concatenated) with ``msg=True``. Points, masks and features are
+channels-last, as in the JAX package; the sampling and every gather run
+the hand-written kernels on the card (``ops/cuda/fps.py``,
+``ops/cuda/gather_rows.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from torch import nn
 
 from lisec_tpu_torch.models.common import (
-    BatchNorm, Dense, SharedMLP, masked_max, reset_parameters)
+    BatchNorm, Dense, MLPHead, SharedMLP, dropout, masked_max,
+    reset_parameters)
 from lisec_tpu_torch.ops.ball_query import ball_query
 from lisec_tpu_torch.ops.cuda import fps as fps_kernel
 from lisec_tpu_torch.ops.grouping import group_and_decorate
@@ -130,12 +134,9 @@ class PointNet2PartSeg(nn.Module):
 
     def dropout(self, h: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.training or self.dropout_rate == 0.0:
+        if not self.training:
             return h
-        keep_prob = 1.0 - self.dropout_rate
-        keep = torch.rand(h.shape, generator=generator,
-                          device=h.device) < keep_prob
-        return torch.where(keep, h / keep_prob, 0.0)
+        return dropout(h, self.dropout_rate, generator)
 
     def forward(self, points, point_mask, category_onehot,
                 generator: Optional[torch.Generator] = None):
@@ -158,3 +159,40 @@ class PointNet2PartSeg(nn.Module):
 
         h = torch.relu(self.head_bn(self.head_dense(f0)))
         return self.head_out(self.dropout(h, generator))
+
+
+class PointNet2Cls(nn.Module):
+    """SSG classification network (ModelNet40-style) on xyz points, as the
+    ModelNet40 loader gives them: two set abstractions (512 centres,
+    radius 0.2, 32 neighbours; 128, 0.4, 64), the global one, and the
+    head Dense(512 w)-BN-ReLU-dropout, Dense(256 w)-BN-ReLU-dropout,
+    Dense(classes), its hidden Dense layers with a bias as in the JAX
+    network. Dropout (0.4) as in :class:`PointNet2PartSeg`."""
+
+    FLAX_KEYS = "pointnet2_cls"  # its key map in ``weights.py``
+
+    def __init__(self, num_classes: int = 40, width: int = 1):
+        super().__init__()
+        w = width
+        sa1 = SetAbstraction(0, 512, (0.2,), (32,),
+                             ((64 * w, 64 * w, 128 * w),))
+        sa2 = SetAbstraction(sa1.out_features, 128, (0.4,), (64,),
+                             ((128 * w, 128 * w, 256 * w),))
+        self.sa = nn.ModuleList([sa1, sa2])
+        self.global_sa = GlobalSetAbstraction(
+            sa2.out_features, (256 * w, 512 * w, 1024 * w))
+        self.head = MLPHead(1024 * w, (512 * w, 256 * w), num_classes,
+                            dropout_rate=0.4, hidden_bias=True)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_parameters(self, generator)
+
+    def forward(self, points, point_mask,
+                generator: Optional[torch.Generator] = None):
+        """points (B, N, 3), point_mask (B, N) -> {'logits' (B, classes),
+        'feature_transform': None}."""
+        xyz1, f1, m1 = self.sa[0](points, None, point_mask)
+        xyz2, f2, m2 = self.sa[1](xyz1, f1, m1)
+        g = self.global_sa(xyz2, f2, m2)                       # (B, 1024 w)
+        return {"logits": self.head(g, generator),
+                "feature_transform": None}

@@ -52,6 +52,8 @@ class RangeSegNet(nn.Module):
     a 1x1 conv with a bias that computes in f32 whatever ``dtype`` is, as
     the flax head has no dtype."""
 
+    FLAX_KEYS = "rangeseg"  # its key map in ``weights.py``
+
     def __init__(self, num_classes: int = 20,
                  widths: Sequence[int] = (32, 64, 128, 256),
                  dtype: torch.dtype = torch.float32):

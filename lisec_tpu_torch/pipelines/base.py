@@ -11,12 +11,13 @@ object. The device mesh and data-parallel training are not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from lisec_tpu_torch.config import Config
+from lisec_tpu_torch.data.collate import make_batches
 from lisec_tpu_torch.training.optim import make_optimizer
 
 
@@ -48,7 +49,7 @@ def same_device(a, b) -> bool:
 class Pipeline:
     """Subclasses set ``self.model`` (an ``nn.Module`` on ``self.device``
     with a ``reset_parameters(generator)``) in ``__init__`` and implement
-    ``make_dataset``, ``loss`` and ``predict``."""
+    ``make_dataset``, ``loss``, ``predict`` and ``evaluate``."""
 
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
@@ -75,6 +76,12 @@ class Pipeline:
     def augment_fn(self, split: str):
         """Host-side augmentation hook; None = no augmentation."""
         return None
+
+    def evaluate(self, max_batches: int = 0) -> Dict[str, float]:
+        """The workload's metrics over its held-out split with the
+        model's current weights (the first ``max_batches`` batches; 0:
+        all)."""
+        raise NotImplementedError
 
     # -- provided machinery ------------------------------------------------
 
@@ -119,3 +126,19 @@ class Pipeline:
         """Batch (numpy arrays or tensors) in, outputs on the device out."""
         self.model.eval()
         return self.predict(self.device_batch(batch))
+
+    def eval_outputs(self, split: str, max_batches: int = 0
+                     ) -> Iterator[Tuple[Dict[str, np.ndarray],
+                                         Dict[str, np.ndarray]]]:
+        """(batch, outputs) over ``split`` in order, in whole batches of
+        ``train.batch_size``, the first ``max_batches`` of them (0: all),
+        each batch's outputs moved to the host once, as numpy. Leaves the
+        model in ``eval()``."""
+        cfg = self.cfg
+        batches = make_batches(self.make_dataset(split), cfg.budget,
+                               cfg.train.batch_size, shuffle=False, epochs=1)
+        for n, batch in enumerate(batches, 1):
+            out = self.infer(batch)
+            yield batch, {k: v.cpu().numpy() for k, v in out.items()}
+            if max_batches and n >= max_batches:
+                return

@@ -7,6 +7,7 @@ voxelize + mean-VFE + the sparse middle encoder) -> backbone -> head ->
 score preselect -> decode -> direction-bin yaw -> rotated NMS ->
 boxes/scores/labels/valid. Training assigns targets on the device and
 uses the focal / smooth-L1 with sin-difference / direction loss recipe.
+Evaluation takes recall at BEV IoU 0.5 and KITTI AP over the val split.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch.nn.functional as F
 
 from lisec_tpu_torch.config import Config
 from lisec_tpu_torch.data.kitti import KittiDetection
+from lisec_tpu_torch.eval.detection import match_frame
+from lisec_tpu_torch.eval.kitti_ap import collect_detections, kitti_ap
 from lisec_tpu_torch.models.pointpillars import PointPillarsFused
 from lisec_tpu_torch.models.second import SECONDNet
 from lisec_tpu_torch.ops.boxes import decode_boxes
@@ -237,6 +240,30 @@ class PointPillarsPipeline(Pipeline):
                             and self.num_classes > 1 else 0))
         return {"boxes": nms.boxes, "scores": nms.scores,
                 "labels": nms.labels, "valid": nms.valid}
+
+    # -- evaluation --------------------------------------------------------
+
+    def evaluate(self, max_batches: int = 0) -> Dict[str, float]:
+        """Recall of the gt boxes at BEV IoU >= 0.5 and the mean count of
+        kept boxes over the ``val`` split, and KITTI AP (simple and
+        official) unless ``model.params.eval_ap`` is false. One pass over
+        the split gives both: the frames and numbers of the JAX package's
+        recall pass and AP pass."""
+        dets, gts = collect_detections(
+            self, split="val",
+            max_frames=max_batches * self.cfg.train.batch_size)
+        total_gt = hit_gt = num_det = 0
+        for det, gt in zip(dets, gts):
+            stats = match_frame(det["boxes"], det["labels"], gt["boxes"],
+                                gt["classes"], iou_threshold=0.5)
+            total_gt += stats["num_gt"]
+            hit_gt += stats["num_hit"]
+            num_det += stats["num_det"]
+        metrics = {"recall@0.5": hit_gt / max(total_gt, 1),
+                   "mean_detections": num_det / max(len(dets), 1)}
+        if self.cfg.model.params.get("eval_ap", True):
+            metrics.update(kitti_ap(dets, gts, self.num_classes))
+        return metrics
 
 
 @register_pipeline("second")

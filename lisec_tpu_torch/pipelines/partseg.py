@@ -1,7 +1,8 @@
 """PointNet++ part segmentation on ShapeNetPart (port of
 ``lisec_tpu/pipelines/partseg.py``): farthest-point sampling -> ball
 query -> grouping -> three-NN interpolation, a per-point head with the
-category one-hot, softmax cross-entropy over the valid points.
+category one-hot, softmax cross-entropy over the valid points; class and
+instance mIoU for evaluation.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from lisec_tpu_torch.models.pointnet2 import PointNet2PartSeg
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.losses import cross_entropy
+from lisec_tpu_torch.training.metrics import IoUMeter, instance_miou
 
 register_model("pointnet2_partseg")(PointNet2PartSeg)
 
@@ -78,7 +80,19 @@ class PointNet2PartSegPipeline(Pipeline):
         return {"logits": logits,
                 "labels": logits.argmax(-1).to(torch.int32)}
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "part-segmentation evaluation (class and instance mIoU, "
-            "training/metrics.py) is not ported to lisec_tpu_torch yet")
+    def evaluate(self, max_batches: int = 0) -> Dict[str, float]:
+        """Class mIoU and instance mIoU (each shape over its category's
+        parts) of the valid points over the ``test`` split."""
+        meter = IoUMeter(self.num_parts)
+        preds, labels, parts = [], [], []
+        for batch, out in self.eval_outputs("test", max_batches):
+            for i, pred in enumerate(out["labels"]):
+                m = batch["point_mask"][i]
+                meter.update(pred[m], batch["point_labels"][i][m])
+                preds.append(pred[m])
+                labels.append(batch["point_labels"][i][m])
+                cat = int(batch["category"][i])
+                parts.append(range(cat * self.parts_per_cat,
+                                   (cat + 1) * self.parts_per_cat))
+        return {"class_miou": meter.miou(),
+                "instance_miou": instance_miou(preds, labels, parts)}

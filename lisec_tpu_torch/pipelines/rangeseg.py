@@ -3,7 +3,8 @@
 -> per-pixel logits -> range-window kNN refinement -> per-point labels,
 all on the pipeline's device. Training takes softmax cross-entropy plus
 ``lovasz_weight`` times Lovász-softmax over the occupied, labelled
-pixels, each pixel labelled by its projection winner.
+pixels, each pixel labelled by its projection winner; evaluation takes
+the point mIoU.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from lisec_tpu_torch.ops.range_proj import RangeImage, range_project_batch
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.losses import cross_entropy, lovasz_softmax
+from lisec_tpu_torch.training.metrics import IoUMeter
 
 register_model("rangeseg")(RangeSegNet)
 
@@ -96,7 +98,15 @@ class RangeSegPipeline(Pipeline):
             k=self.knn_k, num_classes=self.num_classes)
         return {"labels": labels, "pixel_labels": pixel_labels}
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "range-segmentation evaluation (point mIoU, "
-            "training/metrics.py) is not ported to lisec_tpu_torch yet")
+    def evaluate(self, max_batches: int = 0) -> Dict[str, float]:
+        """Point mIoU over the ``val`` split of the valid, labelled
+        points: ``miou`` without class 0 (unlabelled), ``miou_all`` with
+        it."""
+        meter = IoUMeter(self.num_classes)
+        for batch, out in self.eval_outputs("val", max_batches):
+            for i, pred in enumerate(out["labels"]):
+                labels = batch["point_labels"][i]
+                m = batch["point_mask"][i] & (labels >= 0)
+                meter.update(pred[m], labels[m])
+        return {"miou": meter.miou(skip_class_0=True),
+                "miou_all": meter.miou()}

@@ -1,10 +1,11 @@
 """Training loop (port of ``lisec_tpu/training/loop.py``).
 
 The host feeds fixed-shape batches; each ``train_step`` runs forward,
-backward and the update on the pipeline's device. Metrics go to a JSONL
-file when a directory is given. Checkpointing with resume, multi-host
-launch, the periodic eval hook and the TensorBoard mirror are not ported
-yet: a config that asks for one raises ``NotImplementedError``.
+backward and the update on the pipeline's device. Metrics, and every
+``train.eval_every`` steps the pipeline's ``evaluate``, go to the history
+and to a JSONL file when a path is given. Checkpointing with resume,
+multi-host launch, the TensorBoard mirror and NaN debugging are not
+ported yet: a config that asks for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ def _refuse_unported(cfg: Config) -> None:
             (t.multihost, "multi-host training (train.multihost)"),
             (t.num_devices > 1, "data-parallel training "
                                 "(train.num_devices > 1)"),
-            (t.eval_every > 0, "the periodic eval hook (train.eval_every)"),
             (t.tensorboard, "the TensorBoard mirror (train.tensorboard)"),
             (t.debug_nans, "NaN debugging (train.debug_nans)")):
         if asked:
@@ -93,5 +93,33 @@ def run_training(cfg: Config, device="cuda", progress: bool = True,
                                if isinstance(v, float))
                 print(f"[train {step + 1}/{cfg.train.num_steps}] {msg}",
                       flush=True)
+        if cfg.train.eval_every and (step + 1) % cfg.train.eval_every == 0:
+            # evaluate() leaves the model in eval(); the next train_step
+            # puts it back in train().
+            metrics = pipeline.evaluate()
+            rec = {"step": step + 1, "eval": metrics}
+            history.append(rec)
+            logger.log(rec)
+            if progress:
+                print(f"[eval {step + 1}] {metrics}", flush=True)
     logger.close()
     return pipeline, history
+
+
+def run_evaluation(cfg: Config, pipeline=None, device="cuda"
+                   ) -> Dict[str, float]:
+    """Evaluate a config: ``pipeline``'s current weights, or, with none
+    given, a new pipeline on ``device`` initialised by
+    ``init_state(train.seed)``. Restoring a checkpoint first
+    (``train.ckpt_dir``) is not ported yet and raises."""
+    if cfg.train.ckpt_dir:
+        raise NotImplementedError(
+            "restoring a checkpoint (train.ckpt_dir) before evaluating is "
+            "not ported to lisec_tpu_torch yet")
+    if pipeline is None:
+        from lisec_tpu_torch.api import build_model
+        pipeline = build_model(cfg, device=device)
+        pipeline.init_state(cfg.train.seed)
+    metrics = pipeline.evaluate()
+    print(json.dumps(metrics, indent=2))
+    return metrics

@@ -25,6 +25,13 @@ PointNet++'s flax names map by module: ``SetAbstraction_i/SharedMLP_j``
 ``Dense_0``, ``BatchNorm_0`` and ``Dense_1`` -> ``head_dense``,
 ``head_bn``, ``head_out``.
 
+PointNet2Cls maps its set abstractions the same way and its top-level
+``Dense_k`` and ``BatchNorm_k`` (the head) -> ``head.dense.k`` and
+``head.bn.k``. PointNetCls maps by module path: ``TNet_i`` -> ``tnets.i``
+(the T-Nets present, in order), ``SharedMLP_j`` -> ``mlps.j``,
+``MLPHead_0`` -> ``head``, inside each ``Dense_k`` -> ``dense.k`` and
+``BatchNorm_k`` -> ``bn.k``, and a T-Net's own ``Dense_0`` -> ``out``.
+
 RangeSegNet's map by position (``lisec_tpu_torch/models/rangeseg.py``):
 ``ConvBNRelu_0`` -> ``stem``; the top-level ``Conv_i`` and
 ``BatchNorm_i`` below the level count L -> ``down.i``;
@@ -33,6 +40,12 @@ RangeSegNet's map by position (``lisec_tpu_torch/models/rangeseg.py``):
 ``blocks.j.conv.c`` and ``_ResBlock_j/Conv_0`` -> ``blocks.j.proj``. L is
 the number of top-level ``ConvTranspose_i``, and every one of them is a
 transposed kernel.
+
+The classifiers name their map: their classes' ``FLAX_KEYS``
+(``"pointnet_cls"``, ``"pointnet2_cls"``) go to ``convert_flax_arrays``
+as ``keys``; RangeSegNet's is ``"rangeseg"``. Without ``keys`` the
+detectors', part segmentation's and range segmentation's maps are told
+apart by range segmentation's top-level transposed convs.
 
 ``to_flax_arrays`` is the way back, for comparing gradients, updated
 parameters and running statistics with the JAX package name by name.
@@ -108,6 +121,51 @@ _PATTERNS = (
 
 
 _BUFFERS = ("mean", "var")
+_POINTNET_OWNERS = {"TNet": "tnets", "SharedMLP": "mlps"}
+# PointNet2Cls's head: its top-level Dense and BatchNorm layers.
+_CLS_HEAD = re.compile(r"(?:params|batch_stats)/(?P<kind>Dense|BatchNorm)_"
+                       r"(?P<k>\d+)/(?P<leaf>kernel|bias|scale|mean|var)$")
+
+
+def _pointnet_cls_name(key: str) -> str:
+    """Flat flax key of PointNetCls -> the port's ``state_dict`` name."""
+    _, *owners, layer, leaf = key.split("/")
+    kind, _, k = layer.rpartition("_")
+    names = []
+    for owner in owners:
+        o_kind, _, i = owner.rpartition("_")
+        if owner == "MLPHead_0":
+            names.append("head")
+        elif o_kind in _POINTNET_OWNERS:
+            names += [_POINTNET_OWNERS[o_kind], i]
+        else:
+            names = []
+            break
+    if not names or kind not in ("Dense", "BatchNorm"):
+        raise KeyError(f"no place in the port's model for {key!r}")
+    leaf = "weight" if leaf == "kernel" else leaf
+    if owners[-1].startswith("TNet_"):            # the T-Net's last Dense
+        return ".".join(names + ["out", leaf])
+    return ".".join(names + ["dense" if kind == "Dense" else "bn", k, leaf])
+
+
+def _pointnet_cls_flax_key(name: str) -> str:
+    """PointNetCls ``state_dict`` name -> flat flax key."""
+    parts = name.split(".")
+    leaf = parts.pop()
+    path = []
+    while parts[0] in _POINTNET_OWNERS.values():
+        kind = {v: k for k, v in _POINTNET_OWNERS.items()}[parts[0]]
+        path.append(f"{kind}_{parts[1]}")
+        parts = parts[2:]
+    if parts[0] == "head":
+        path.append("MLPHead_0")
+        parts = parts[1:]
+    layer = ("Dense_0" if parts == ["out"] else
+             f"{'Dense' if parts[0] == 'dense' else 'BatchNorm'}_{parts[1]}")
+    col = "batch_stats" if leaf in _BUFFERS else "params"
+    return (f"{col}/{'/'.join(path)}/{layer}/"
+            f"{'kernel' if leaf == 'weight' else leaf}")
 _RANGESEG_UP = re.compile(r"params/ConvTranspose_\d+/kernel$")
 _RANGESEG_KEY = re.compile(
     r"(?:params|batch_stats)/(?:"
@@ -172,26 +230,42 @@ def _convert_value(key: str, arr: np.ndarray) -> torch.Tensor:
     return t
 
 
-def convert_flax_arrays(flat: Dict[str, np.ndarray]
+def _modules_name(key: str) -> str:
+    """Flat flax key of PointPillarsFused, SECONDNet or PointNet2PartSeg
+    (and PointNet2Cls's set abstractions) -> ``state_dict`` name."""
+    for pattern, name in _PATTERNS:
+        m = pattern.match(key)
+        if m:
+            return name(m)
+    raise KeyError(f"no place in the port's model for {key!r}")
+
+
+def _pointnet2_cls_name(key: str) -> str:
+    """Flat flax key of PointNet2Cls -> ``state_dict`` name."""
+    m = _CLS_HEAD.match(key)
+    if m is None:
+        return _modules_name(key)
+    leaf = "weight" if m["leaf"] == "kernel" else m["leaf"]
+    kind = "dense" if m["kind"] == "Dense" else "bn"
+    return f"head.{kind}.{m['k']}.{leaf}"
+
+
+def convert_flax_arrays(flat: Dict[str, np.ndarray],
+                        keys: Optional[str] = None
                         ) -> Dict[str, torch.Tensor]:
     """Flat flax arrays -> the ``state_dict`` of the port's
-    PointPillarsFused, SECONDNet, PointNet2PartSeg or RangeSegNet.
+    PointPillarsFused, SECONDNet, PointNet2PartSeg or RangeSegNet, or of
+    the model whose ``FLAX_KEYS`` is ``keys`` (PointNetCls,
+    PointNet2Cls).
 
     Raises KeyError on a key it cannot place."""
     levels = sum(1 for key in flat if _RANGESEG_UP.match(key))
-    if levels:
-        return {_rangeseg_name(key, levels): _convert_value(key, arr)
-                for key, arr in flat.items()}
-    out = {}
-    for key, arr in flat.items():
-        for pattern, name in _PATTERNS:
-            m = pattern.match(key)
-            if m:
-                out[name(m)] = _convert_value(key, arr)
-                break
-        else:
-            raise KeyError(f"no place in the port's model for {key!r}")
-    return out
+    name = {"pointnet_cls": _pointnet_cls_name,
+            "pointnet2_cls": _pointnet2_cls_name}.get(keys)
+    if name is None:
+        name = ((lambda key: _rangeseg_name(key, levels)) if levels
+                else _modules_name)
+    return {name(key): _convert_value(key, arr) for key, arr in flat.items()}
 
 
 def load_weights_npz(model: nn.Module, path: str) -> nn.Module:
@@ -200,7 +274,8 @@ def load_weights_npz(model: nn.Module, path: str) -> nn.Module:
     Strict: a parameter the snapshot does not fill, a key the model does
     not use or a shape that differs raises."""
     with np.load(path) as data:
-        state = convert_flax_arrays({k: data[k] for k in data.files})
+        state = convert_flax_arrays({k: data[k] for k in data.files},
+                                    getattr(model, "FLAX_KEYS", None))
     model.load_state_dict(state, strict=True)
     return model
 
@@ -209,11 +284,16 @@ _POINTNET2_PARTS = {"sa", "global_sa", "fp3", "fp", *_POINTNET2_HEAD.values()}
 
 
 def _pointnet2_flax_key(name: str) -> str:
-    """PointNet++ ``state_dict`` name -> flat flax key."""
+    """PointNet++ (part segmentation or classification) ``state_dict``
+    name -> flat flax key."""
     part, _, rest = name.partition(".")
     if part in _POINTNET2_HEAD.values():
         layer = {v: k for k, v in _POINTNET2_HEAD.items()}[part]
         owner, leaf = "", rest
+    elif part == "head":                   # head.<dense|bn>.<k>.<leaf>
+        kind, k, leaf = rest.split(".")
+        layer = f"{'Dense' if kind == 'dense' else 'BatchNorm'}_{k}"
+        owner = ""
     else:
         if part == "sa":                   # sa.<i>.mlps.<j>.<rest>
             i, _, j, rest = rest.split(".", 3)
@@ -266,13 +346,16 @@ def to_flax_arrays(model: nn.Module,
     when given."""
     transposed = {f"{n}.weight" for n, m in model.named_modules()
                   if getattr(m, "transpose", False)}
-    levels = len(model.up) if hasattr(model, "up") else 0
+    keys = getattr(model, "FLAX_KEYS", None)
+    flax_key = {
+        "rangeseg": lambda name: _rangeseg_flax_key(name, len(model.up)),
+        "pointnet_cls": _pointnet_cls_flax_key,
+        "pointnet2_cls": _pointnet2_flax_key}.get(keys, _flax_key)
     out = {}
     for name, t in (model.state_dict() if tensors is None
                     else tensors).items():
         t = t.detach().cpu().float()
-        key = (_rangeseg_flax_key(name, levels) if levels
-               else _flax_key(name))
+        key = flax_key(name)
         if t.dim() == 2 and "/Dense_" in key:      # nn.Linear (out, in)
             t = t.T
         elif name in transposed:                   # undo flip and permute

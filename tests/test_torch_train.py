@@ -560,12 +560,11 @@ def test_prefetch_hands_on_items_and_errors(port_pipe):
     assert next(stream) == 1
     with pytest.raises(KeyError, match="no such scene"):
         next(stream)
-    # A sample of a workload that is not ported (classification) is
-    # refused, not passed on half padded.
-    sample = {"points": np.zeros((3, 4), np.float32),
-              "label": np.int32(3)}
-    with pytest.raises(NotImplementedError):
-        pad_to_budget(sample, port_pipe.cfg.budget)
+    # A classification sample's label is padded to an int32 scalar.
+    sample = {"points": np.zeros((3, 4), np.float32), "label": 3}
+    padded = pad_to_budget(sample, port_pipe.cfg.budget)
+    assert padded["label"].dtype == np.int32 and padded["label"].shape == ()
+    assert int(padded["label"]) == 3
 
 
 @pytest.mark.parametrize("seed", [0, 5])
@@ -618,7 +617,7 @@ def test_train_entry_point_is_deterministic():
 
 @pytest.mark.parametrize("override", [
     "train.ckpt_dir=runs/x", "train.resume=auto", "train.multihost=true",
-    "train.num_devices=4", "train.eval_every=10", "train.tensorboard=true",
+    "train.num_devices=4", "train.tensorboard=true",
     "train.debug_nans=true", "data.augment.enabled=true",
     "model.params.fused=false"])
 def test_unported_options_raise(override):
