@@ -112,7 +112,25 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    then each classifier's predict and train step timed, and every
    ``fps``, ``gather_rows`` and ``scatter_rows`` call of the PointNet++
    classifier;
-11. list under ``torch.profiler`` what ``pillar_canvas_fused``,
+11. the shipped detector training configs as written
+   (``configs/pointpillars_fixture_hard_conv.yaml``,
+   ``configs/second_fixture_conv.yaml``: full width, batch 4, their
+   augmentation on: GT sampling over the 256 train scenes, per-box noise,
+   flip, rotation, scale) through ``lisec_tpu_torch.train(cfg)`` with a
+   checkpoint directory, only ``train.ckpt_dir``, ``train.num_steps`` and
+   ``train.ckpt_every`` overridden: the launch counts set to 0 just
+   before and read just after each run (3 paints and 2 unpaint-source
+   launches a PointPillars step; 9 spreads, 3 paints and 10 unpaints a
+   SECOND step), the checkpoints kept and ``metrics.jsonl``; resume on
+   the card (two unbroken PointPillars runs, and one killed after its
+   step-3 save and resumed, bit-equal in every parameter, running
+   statistic and optimizer moment); the command line's ``infer`` from a
+   checkpoint holding the trained snapshot's weights (one
+   ``pillar_canvas_fused`` launch) equal to the pipeline's ``infer``; the
+   GT database's build, one save and one restore, and ``train(cfg)``'s
+   clouds/s with the augmentation on and off beside the host's batches
+   alone;
+12. list under ``torch.profiler`` what ``pillar_canvas_fused``,
    ``fps_gather``, ``scatter_rows``, ``segment_paint``, ``gather_rows``,
    the grouping and ``spread_accumulate`` calls run (the outputs' and
    scratch's allocation and the kernels' own launches, nothing else;
@@ -123,7 +141,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    source's calls of both train steps (and the plain C = 4 gather beside
    ``torch.gather``), by kernel (after the timed phases, so that no trace
    touches them);
-12. print the ``{"kernels": [...]}`` line, the card's name and power
+13. print the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 Every comparison on the card runs with TF32 off for matrix products and
@@ -135,10 +153,12 @@ exits nonzero before printing any result.
 
 import json
 import contextlib
+import io
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -861,7 +881,10 @@ TRAIN_STEPS = 3
 
 
 def train_config(path, num_steps, log_every=1):
-    """A full-width training config; the overrides are no widths."""
+    """A full-width training config; the overrides are no widths. These
+    phases hold single steps against the plain route, so they train
+    without augmentation and save no checkpoint; phase 11 runs the
+    configs as written."""
     from lisec_tpu_torch.config import apply_overrides, load_config
     return apply_overrides(load_config(path), [
         "data.augment.enabled=false", 'train.ckpt_dir=""',
@@ -2675,7 +2698,7 @@ RANGESEG_DENSITIES = (16000, 120000)
 
 def rangeseg_config(num_steps=TRAIN_STEPS, log_every=1):
     """The full-width range-seg config; the overrides are no widths
-    (checkpoints are not ported; augmentation, rotate_z, stays on)."""
+    (no checkpoint is saved; augmentation, rotate_z, stays on)."""
     from lisec_tpu_torch.config import apply_overrides, load_config
     return apply_overrides(load_config(RANGESEG_CFG), [
         'train.ckpt_dir=""', f"train.num_steps={num_steps}",
@@ -3155,7 +3178,7 @@ POINTNET_F32_GRAD_LIMIT = 2e-3
 def cls_config(path, num_steps=TRAIN_STEPS, log_every=1):
     """A full-width classification config on the ModelNet40 fixture (the
     repository holds no ModelNet40 files); the overrides are no widths
-    (checkpoints are not ported; augmentation stays on)."""
+    (no checkpoint is saved; augmentation stays on)."""
     from lisec_tpu_torch.config import apply_overrides, load_config
     return apply_overrides(load_config(path), [
         "data.fixture=true", "data.fixture_size=512", 'train.ckpt_dir=""',
@@ -3781,6 +3804,314 @@ def phase_cls_timing(runs):
     return rows
 
 
+# -- phase 11: the shipped detector configs as written ------------------------
+
+AS_WRITTEN_STEPS = 4        # saves at 1 (the first), 2 (ckpt_every), 4 (last)
+RESUME_STEPS = 6            # the killed run dies after step 3, its save
+RATE_STEPS = 100            # the clouds/s runs, logged at 1, 20, ..., 100;
+RATE_LOG_EVERY = 20         # the rate is read from the log at 20 to 100
+RATE_ORDER = ("true", "false", "false", "true")   # augmentation, per run
+
+
+class Preempted(Exception):
+    """Stands for a run killed between two steps."""
+
+
+def as_written(path, ckpt_dir, num_steps, ckpt_every, *extra):
+    """A shipped training config with only its checkpoint directory, step
+    count and save interval overridden (``extra``: the timing runs'
+    further overrides)."""
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    return apply_overrides(load_config(path), [
+        f"train.ckpt_dir={ckpt_dir}", f"train.num_steps={num_steps}",
+        f"train.ckpt_every={ckpt_every}", *extra])
+
+
+def train_quiet(cfg):
+    import torch
+    import lisec_tpu_torch
+    with torch.enable_grad():
+        pipe, history = lisec_tpu_torch.train(cfg, progress=False)
+    torch.cuda.synchronize()
+    return pipe, history
+
+
+def state_gap(a, b):
+    """(largest absolute difference, names that differ) over two
+    ``Pipeline.state_dict()``s: every parameter, running statistic,
+    optimizer moment and step count."""
+    import torch
+    flat = {}
+    for side, st in enumerate((a, b)):
+        for k, v in st["model"].items():
+            flat.setdefault(f"model/{k}", [None, None])[side] = v
+        opt = st["optimizer"]["optimizer"]["state"]
+        for i, slots in opt.items():
+            for k, v in slots.items():
+                flat.setdefault(f"optimizer/{i}/{k}", [None, None])[side] = v
+    if a["optimizer"]["count"] != b["optimizer"]["count"]:
+        raise AssertionError("optimizer counts "
+                             f"{a['optimizer']['count']} and "
+                             f"{b['optimizer']['count']}")
+    worst, differ = 0.0, []
+    for k, (x, y) in flat.items():
+        if x is None or y is None:
+            raise AssertionError(f"{k} is in one state only")
+        if not torch.equal(x, y):
+            differ.append(k)
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst, differ
+
+
+def steady_clouds_per_s(history, batch):
+    """The loop's own rate between its second log and its last: each
+    record's ``clouds_per_sec`` is the clouds since the loop started over
+    the seconds since then, so the steps between take (clouds at the last
+    log - clouds at the second) over the seconds between the two. The
+    first ``RATE_LOG_EVERY`` steps are left out: the prefetch queue fills
+    during them, so its batches made ahead do not flatter the window."""
+    logs = [r for r in history if "clouds_per_sec" in r]
+    first, last = logs[1], logs[-1]
+    if first["step"] != RATE_LOG_EVERY or last["step"] != RATE_STEPS:
+        raise AssertionError(f"rate window {first['step']}-{last['step']}")
+    seconds = (last["step"] * batch / last["clouds_per_sec"]
+               - first["step"] * batch / first["clouds_per_sec"])
+    return (last["step"] - first["step"]) * batch / seconds
+
+
+def phase_configs_as_written(tmp):
+    """``lisec_tpu_torch.train(cfg)`` on ``configs/pointpillars_fixture_
+    hard_conv.yaml`` and ``configs/second_fixture_conv.yaml`` as shipped,
+    their augmentation on (GT sampling, per-box noise, flip, rotation,
+    scale), checkpoints in a temporary directory: the launch counts (set
+    to 0 just before each run, read just after), the steps kept on disk
+    and ``metrics.jsonl``. Then resume on the card: two unbroken runs of
+    the PointPillars config, and one killed after its step-3 save and
+    resumed, held bit-equal (or, should the two unbroken runs differ, to
+    their gap, with the ops named). Then the command line's ``infer`` from
+    a checkpoint against the pipeline's ``infer``, and the card's
+    numbers: clouds/s with the augmentation on and off (and the host's
+    batches alone), the GT database's build, one save and one
+    restore."""
+    import warnings
+    import numpy as np
+    import torch
+    import lisec_tpu_torch
+    from lisec_tpu_torch import cli
+    from lisec_tpu_torch.api import build_model
+    from lisec_tpu_torch.data.collate import make_batches
+    from lisec_tpu_torch.data.fixtures import make_detection_scene_hard
+    from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
+    from lisec_tpu_torch.pipelines.base import Pipeline
+    from lisec_tpu_torch.training.checkpoint import CheckpointManager
+    from lisec_tpu_torch.weights import load_weights_npz
+    detectors = (
+        ("pointpillars_fixture_hard_conv", TRAIN_CFG,
+         POINTPILLARS_LAUNCHES_PER_TRAIN_STEP),
+        ("second_fixture_conv", SECOND_TRAIN_CFG,
+         SECOND_LAUNCHES_PER_TRAIN_STEP))
+    result = {"launches_per_train_step": {}}
+
+    # The GT database over the 256 train scenes: first with the scenes
+    # generated on the host, then from the scene cache.
+    for name, path, _ in detectors:
+        pipe = build_model(as_written(path, "", 1, 1))
+        builds = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sampler_fn = pipe.augment_fn("train")
+            builds.append(time.perf_counter() - t0)
+        if sampler_fn is None:
+            raise AssertionError(f"{name}: augmentation is off as shipped")
+        emit("gt_database", config=name, scenes=pipe.cfg.data.fixture_size,
+             first_build_s=builds[0], cached_build_s=builds[1])
+        del pipe
+
+    for name, path, per_step in detectors:
+        d = os.path.join(tmp, name)
+        cfg = as_written(path, d, AS_WRITTEN_STEPS, 2)
+        aug = cfg.data.augment
+        if not (aug.enabled and aug.gt_sampling and aug.box_noise_rot > 0
+                and aug.box_noise_trans > 0 and aug.global_flip_y
+                and aug.global_rotate > 0):
+            raise AssertionError(f"{name}: the shipped recipe is not on")
+        zero_segment_launches()
+        t0 = time.perf_counter()
+        pipe, history = train_quiet(cfg)
+        seconds = time.perf_counter() - t0
+        launches = segment_launches()
+        if launches != {k: v * AS_WRITTEN_STEPS for k, v in per_step.items()}:
+            raise AssertionError(
+                f"{name} as written: launches {launches} in "
+                f"{AS_WRITTEN_STEPS} steps, expected {per_step} a step")
+        kept = CheckpointManager(d).all_steps()
+        if kept != [1, 2, AS_WRITTEN_STEPS] or pipe.step != AS_WRITTEN_STEPS:
+            raise AssertionError(f"{name}: checkpoints {kept}, step "
+                                 f"{pipe.step}")
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if records != history or [r["step"] for r in records] != [1]:
+            raise AssertionError(f"{name}: metrics.jsonl {records}")
+        for rec in records:
+            if not all(np.isfinite(v) for v in rec.values()):
+                raise AssertionError(f"{name}: non-finite {rec}")
+        result["launches_per_train_step"][name] = {
+            k: v / AS_WRITTEN_STEPS for k, v in launches.items()}
+        emit("config_as_written", config=name, steps=AS_WRITTEN_STEPS,
+             launches=launches, checkpoints=kept, metrics=records,
+             seconds_with_gt_database=seconds)
+        del pipe
+
+    # Resume on the card, cuDNN held to deterministic algorithms.
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for run in ("a", "b"):
+        runs[run] = train_quiet(as_written(
+            TRAIN_CFG, os.path.join(tmp, f"resume_{run}"), RESUME_STEPS,
+            RESUME_STEPS // 2))[0]
+    two_runs, two_runs_differ = state_gap(runs["a"].state_dict(),
+                                          runs["b"].state_dict())
+    killed_dir = os.path.join(tmp, "resume_killed")
+    train_step = Pipeline.train_step
+
+    def dies_after_the_save(self, batch):
+        if self.step == RESUME_STEPS // 2:
+            raise Preempted
+        return train_step(self, batch)
+    Pipeline.train_step = dies_after_the_save
+    try:
+        train_quiet(as_written(TRAIN_CFG, killed_dir, RESUME_STEPS,
+                               RESUME_STEPS // 2))
+        raise AssertionError("the killed run was not killed")
+    except Preempted:
+        pass
+    finally:
+        Pipeline.train_step = train_step
+    if CheckpointManager(killed_dir).latest_step() != RESUME_STEPS // 2:
+        raise AssertionError("the killed run left no step-3 checkpoint")
+    resumed, resumed_history = train_quiet(as_written(
+        TRAIN_CFG, killed_dir, RESUME_STEPS, RESUME_STEPS // 2,
+        "train.resume=auto"))
+    if resumed.step != RESUME_STEPS or \
+            resumed_history[0]["step"] != RESUME_STEPS // 2 + 1:
+        raise AssertionError(f"resumed at step {resumed_history[0]['step']},"
+                             f" ended at {resumed.step}")
+    gap, differ = state_gap(runs["a"].state_dict(), resumed.state_dict())
+    named_ops = []
+    if two_runs_differ:
+        # Name the ops that have no deterministic CUDA implementation.
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train_quiet(as_written(TRAIN_CFG, "", 2, 1))
+        torch.use_deterministic_algorithms(False)
+        named_ops = sorted({str(w.message).split("\n")[0] for w in caught})
+    torch.backends.cudnn.deterministic = False
+    emit("resume_on_card", config="pointpillars_fixture_hard_conv",
+         steps=RESUME_STEPS, killed_after=RESUME_STEPS // 2,
+         resumed_gap=gap, resumed_tensors_differ=len(differ),
+         two_unbroken_runs_gap=two_runs,
+         two_unbroken_runs_tensors_differ=len(two_runs_differ),
+         differ=differ[:10], two_runs_differ=two_runs_differ[:10],
+         nondeterministic_ops=named_ops)
+    if (gap > two_runs) or (not two_runs_differ and differ):
+        raise AssertionError(f"resume: {len(differ)} tensors differ by up to "
+                             f"{gap}; two unbroken runs {two_runs}")
+    result["resume_gap"], result["two_runs_gap"] = gap, two_runs
+
+    # Serving from a checkpoint, through the command line: the trained
+    # snapshot's weights in the resumed run's training state, so that
+    # the served boxes are real detections.
+    trained = runs["a"]
+    load_weights_npz(trained.model, WEIGHTS)
+    serve_dir = os.path.join(tmp, "serve")
+    CheckpointManager(serve_dir).save(RESUME_STEPS, trained, force=True)
+    cloud_path = os.path.join(tmp, "cloud.npy")
+    np.save(cloud_path, make_detection_scene_hard(30_000)["points"])
+    torch.backends.cudnn.deterministic = True
+    ek.LAUNCHES = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        served = cli.main(["infer", TRAIN_CFG, "--cloud", cloud_path,
+                           "--ckpt", serve_dir])
+    torch.cuda.synchronize()
+    cli_launches = ek.LAUNCHES
+    cloud = lisec_tpu_torch.load_cloud(cloud_path)
+    batch = {k: v[None] for k, v in
+             lisec_tpu_torch.preprocess(cloud, trained.cfg).items()}
+    want = lisec_tpu_torch.infer(trained, batch)
+    torch.backends.cudnn.deterministic = False
+    if cli_launches != 1:
+        raise AssertionError(f"cli infer: {cli_launches} encoder launches")
+    if not want["valid"].any():
+        raise AssertionError("the snapshot detected nothing in the scene")
+    if served.keys() != want.keys() or not all(
+            torch.equal(served[k], want[k]) for k in want):
+        raise AssertionError("cli infer from the checkpoint differs from "
+                             "the trained pipeline's infer")
+    shown = json.loads(printed.getvalue())
+    if shown != {k: v[0].cpu().tolist() for k, v in want.items()
+                 if k != "logits"}:
+        raise AssertionError("cli infer printed other outputs")
+    result["cli_launches"] = cli_launches
+    emit("serve_from_checkpoint", config="pointpillars_fixture_hard_conv",
+         step=RESUME_STEPS, points=len(cloud), launches=cli_launches,
+         kept_boxes=int(want["valid"].sum()), outputs=sorted(want))
+
+    # One save and one restore of the trained PointPillars state.
+    mgr = CheckpointManager(os.path.join(tmp, "timing"), keep=1)
+    save_ms, restore_ms = [], []
+    for step in range(1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(step, trained, force=True)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        mgr.restore(resumed)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    if state_gap(trained.state_dict(), resumed.state_dict())[1]:
+        raise AssertionError("restore: the state differs from the saved one")
+    emit("checkpoint_io", config="pointpillars_fixture_hard_conv",
+         save_ms=save_ms, restore_ms=restore_ms,
+         file_mb=os.path.getsize(os.path.join(mgr.directory, "3.pt")) / 1e6)
+    del runs, trained, resumed
+
+    # clouds/s of train(cfg), augmentation on and off, no checkpoints,
+    # in the order on, off, off, on (two readings each); beside it the
+    # host's batches alone (made in this thread, with no training beside
+    # them), ms a batch.
+    for name, path, _ in detectors:
+        rates, host_ms = {"true": [], "false": []}, {}
+        for aug in RATE_ORDER:
+            cfg = as_written(path, "", RATE_STEPS, RATE_STEPS,
+                             f"train.log_every={RATE_LOG_EVERY}",
+                             f"data.augment.enabled={aug}")
+            pipe, history = train_quiet(cfg)
+            rates[aug].append(
+                steady_clouds_per_s(history, cfg.train.batch_size))
+            if aug not in host_ms:
+                batches = make_batches(
+                    pipe.make_dataset("train"), cfg.budget,
+                    cfg.train.batch_size, shuffle=True,
+                    seed=cfg.train.seed, augment_fn=pipe.augment_fn("train"))
+                next(batches)
+                t0 = time.perf_counter()
+                for _ in range(RATE_STEPS):
+                    next(batches)
+                host_ms[aug] = ((time.perf_counter() - t0) / RATE_STEPS
+                                * 1e3)
+            del pipe
+        on, off = rates["true"], rates["false"]
+        emit("train_clouds_per_s", config=name, batch=cfg.train.batch_size,
+             steps=RATE_STEPS - RATE_LOG_EVERY, augment_on=on,
+             augment_off=off,
+             on_over_off=[a / b for a, b in zip(on, off)],
+             host_batch_ms_augment_on=host_ms["true"],
+             host_batch_ms_augment_off=host_ms["false"])
+    return result
+
+
 # What one call of each wrapper launches where the device-time phase
 # checks it, by kernel name.
 DEVICE_LAUNCHES = {
@@ -4023,6 +4354,8 @@ def main() -> int:
     cls_rows = phase_cls_timing((
         ("pointnet_cls_fixture_conv", pn_pipe, pn_cfg, pn_first),
         ("pointnet2_modelnet40", pn2_pipe, pn2_cfg, pn2_first)))
+    with tempfile.TemporaryDirectory() as tmp:
+        shipped = phase_configs_as_written(tmp)
     phase_profile_listing()
     phase_device_times()
 
@@ -4045,7 +4378,8 @@ def main() -> int:
         **{k: timing[8][k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "device_ms",
                                       "device_parts")},
-        "kernel_launches_per_call": 2, "batch_32": timing[32]}]
+        "kernel_launches_per_call": 2, "batch_32": timing[32],
+        "launches_cli_infer_from_checkpoint": shipped["cli_launches"]}]
     # The segment kernels: the times of one PointPillars train step's
     # calls together (three paints; the unpaint source's decoration and
     # segment-max backward), each call also on its own under "calls". No
@@ -4068,10 +4402,16 @@ def main() -> int:
             **({"rangeseg_train_step": rangeseg_train_paint}
                if i == 0 else {})}
 
+    def written(name):
+        return {f"launches_per_train_step_as_written_{cfg_name}": per[name]
+                for cfg_name, per in
+                shipped["launches_per_train_step"].items()}
+
     for mod in (sp, su):
         name = mod.KERNEL_INFO["name"]
         kernels.append({
             **mod.KERNEL_INFO, "launches": train_launches[name],
+            **written(name),
             "max_abs_err": seg_err[name], **summed(train_rows[name]),
             "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
             "launches_per_second_predict": second_launches[name],
@@ -4094,6 +4434,7 @@ def main() -> int:
         "max_abs_err": spread_err, **summed(second_calls),
         "launches_per_predict": second_launches[name],
         "launches_per_train_step": second_train[3][name] / TRAIN_STEPS,
+        **written(name),
         "calls": second_calls,
         "second_train_step": summed(second_train_rows[name]),
         **rangeseg(name)})

@@ -26,9 +26,13 @@ PointNet (``configs/pointnet_cls_fixture_conv.yaml``, no kernel) and
 PointNet++ (``configs/pointnet2_modelnet40.yaml``, the sampling and
 gather kernels). Every workload has its ``evaluate`` (accuracy, mIoU,
 recall and KITTI AP). Every TPU kernel of the JAX package has its CUDA
-counterpart. Checkpoints, data-parallel training, the detection
-augmentation, TensorBoard and NaN debugging are not ported yet and
-raise ``NotImplementedError`` when a config asks for them. Public API::
+counterpart. Training saves checkpoints to ``train.ckpt_dir`` and
+resumes from them (``train.resume``), with the detectors' augmentation
+(GT sampling, per-box noise, global transforms), the TensorBoard mirror
+and NaN checks; ``python -m lisec_tpu_torch.cli`` has ``train``,
+``eval`` and ``infer``. Multi-host and data-parallel training are not
+ported yet and raise ``NotImplementedError`` when a config asks for
+them. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")
     pipeline = lisec_tpu_torch.build_model(cfg)          # device="cuda"
@@ -39,6 +43,7 @@ raise ``NotImplementedError`` when a config asks for them. Public API::
     cfg = lisec_tpu_torch.apply_overrides(cfg, ["train.num_steps=100"])
     pipeline, history = lisec_tpu_torch.train(cfg)       # device="cuda"
     metrics = lisec_tpu_torch.evaluate(cfg, pipeline)
+    metrics = lisec_tpu_torch.evaluate(cfg)   # the latest checkpoint's
 
 Every entry point takes ``device`` (default ``"cuda"``; ``"cpu"`` runs the
 kernels' plain PyTorch versions, as the tests do).

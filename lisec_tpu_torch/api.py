@@ -71,14 +71,18 @@ def infer(pipeline, batch, device="cuda") -> Dict[str, torch.Tensor]:
 
 
 def train(cfg: Config, device="cuda", progress: bool = True):
-    """Train a config from scratch on ``device``; returns (pipeline,
-    history), the trained weights being the pipeline's model."""
+    """Train a config on ``device`` (from ``train.seed``, or from the
+    latest checkpoint of ``train.ckpt_dir`` with ``train.resume``);
+    returns (pipeline, history), the trained weights being the
+    pipeline's model."""
     from lisec_tpu_torch.training.loop import run_training
     return run_training(cfg, device=device, progress=progress)
 
 
 def evaluate(cfg: Config, pipeline=None, device="cuda") -> Dict[str, float]:
     """The workload's metrics over its held-out split: of ``pipeline``'s
-    weights, or of a new pipeline on ``device`` from ``train.seed``."""
+    weights, or of a new pipeline on ``device`` from ``train.seed``,
+    restored from the latest checkpoint of ``train.ckpt_dir`` when there
+    is one."""
     from lisec_tpu_torch.training.loop import run_evaluation
     return run_evaluation(cfg, pipeline=pipeline, device=device)

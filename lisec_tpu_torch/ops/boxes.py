@@ -66,3 +66,21 @@ def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     cx = x[..., None] + dx * c - dy * s
     cy = y[..., None] + dx * s + dy * c
     return torch.stack([cx, cy], dim=-1)
+
+
+def points_in_rbbox(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Membership of points in rotated 3D boxes: points (N, >=3), boxes
+    (B, 7) -> (N, B) bool. Points on the boundary count as inside (<= on
+    the half-extents). The JAX package exports it and runs it on no
+    path; so does the port, for the same API (the augmentation's
+    membership is ``native.points_in_rbbox_first``)."""
+    xyz = points[:, None, :3] - boxes[None, :, :3]              # (N, B, 3)
+    yaw = boxes[None, :, 6]
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    # Rotate into the box frame (the inverse rotation).
+    local_x = xyz[..., 0] * c + xyz[..., 1] * s
+    local_y = -xyz[..., 0] * s + xyz[..., 1] * c
+    local_z = xyz[..., 2]
+    l, w, h = boxes[None, :, 3], boxes[None, :, 4], boxes[None, :, 5]
+    return ((local_x.abs() <= l / 2) & (local_y.abs() <= w / 2)
+            & (local_z.abs() <= h / 2))

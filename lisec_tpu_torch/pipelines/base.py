@@ -6,7 +6,8 @@ without a card it raises instead of running on the CPU, where only the
 caller's ``device="cpu"`` runs the plain PyTorch versions of the kernels.
 The model and the optimizer hold the training state (parameters,
 running statistics, moments, step count), so there is no separate state
-object. The device mesh and data-parallel training are not ported yet.
+object; ``state_dict`` gathers it for a checkpoint. The device mesh and
+data-parallel training are not ported yet.
 """
 
 from __future__ import annotations
@@ -97,6 +98,27 @@ class Pipeline:
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.optimizer, self.schedule = make_optimizer(
             self.model.parameters(), self.cfg.train)
+
+    def state_dict(self) -> Dict:
+        """The training state a checkpoint holds: the model's parameters
+        and running statistics, the optimizer's moments and step count,
+        and the dropout masks' generator where the pipeline has one."""
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict()}
+        gen = getattr(self, "dropout_generator", None)
+        if gen is not None:
+            state["dropout_generator"] = gen.get_state()
+        return state
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore what ``state_dict`` returned, after ``init_state``."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state() before load_state_dict()")
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        gen = getattr(self, "dropout_generator", None)
+        if gen is not None:
+            gen.set_state(state["dropout_generator"])
 
     @property
     def step(self) -> int:

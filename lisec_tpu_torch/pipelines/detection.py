@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from lisec_tpu_torch.config import Config
+from lisec_tpu_torch.data.augment import GTSampler, augment_detection
 from lisec_tpu_torch.data.kitti import KittiDetection
 from lisec_tpu_torch.eval.detection import match_frame
 from lisec_tpu_torch.eval.kitti_ap import collect_detections, kitti_ap
@@ -126,9 +127,11 @@ class PointPillarsPipeline(Pipeline):
     def augment_fn(self, split: str):
         if split != "train" or not self.cfg.data.augment.enabled:
             return None
-        raise NotImplementedError(
-            "host-side augmentation (data.augment.enabled) is not ported "
-            "to lisec_tpu_torch yet")
+        aug = self.cfg.data.augment
+        sampler = None
+        if aug.gt_sampling:
+            sampler = GTSampler(self.make_dataset("train"))
+        return lambda s, rng: augment_detection(s, rng, aug, sampler)
 
     # -- training ----------------------------------------------------------
 

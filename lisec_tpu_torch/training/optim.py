@@ -114,6 +114,13 @@ class Optimizer:
         self.count += 1
         return norm
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "optimizer": self.opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.opt.load_state_dict(state["optimizer"])
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig
                    ) -> Tuple[Optimizer, Schedule]:

@@ -207,12 +207,17 @@ def test_eval_hook_logs_step_and_metrics(tmp_path):
     assert pipe.step == 4
 
 
-def test_run_evaluation_and_api_evaluate(capsys):
+def test_run_evaluation_and_api_evaluate(capsys, tmp_path):
     cfg = lisec_tpu_torch.load_config(_config("pointnet_modelnet40_tiny"))
-    with pytest.raises(NotImplementedError, match="ckpt_dir"):
-        run_evaluation(apply_overrides(cfg, ["train.ckpt_dir=runs/x"]),
-                       device="cpu")
+    # With a checkpoint directory, the latest checkpoint's weights.
+    ckpt = apply_overrides(cfg, [f"train.ckpt_dir={tmp_path / 'run'}",
+                                 "train.num_steps=3", "train.log_every=10"])
+    trained, _ = lisec_tpu_torch.train(ckpt, device="cpu", progress=False)
+    restored = run_evaluation(ckpt, device="cpu")
+    assert restored == trained.evaluate()
+    capsys.readouterr()
     fresh = lisec_tpu_torch.evaluate(cfg, device="cpu")
+    assert fresh != restored
     assert set(fresh) == {"accuracy", "class_mean_accuracy"}
     assert json.loads(capsys.readouterr().out) == fresh
     pipe = lisec_tpu_torch.build_model(cfg, device="cpu")

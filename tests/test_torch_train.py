@@ -616,9 +616,7 @@ def test_train_entry_point_is_deterministic():
 
 
 @pytest.mark.parametrize("override", [
-    "train.ckpt_dir=runs/x", "train.resume=auto", "train.multihost=true",
-    "train.num_devices=4", "train.tensorboard=true",
-    "train.debug_nans=true", "data.augment.enabled=true",
+    "train.multihost=true", "train.num_devices=4",
     "model.params.fused=false"])
 def test_unported_options_raise(override):
     cfg = apply_overrides(lisec_tpu_torch.load_config(TINY),
