@@ -130,7 +130,28 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    GT database's build, one save and one restore, and ``train(cfg)``'s
    clouds/s with the augmentation on and off beside the host's batches
    alone;
-12. list under ``torch.profiler`` what ``pillar_canvas_fused``,
+12. the voxel-buffer PointPillars, the 3-class config, the int16 wire
+   and the bench: ``segment_paint`` bit-equal to its plain version on
+   the voxel table's calls ((B, 32768, 8) rows into 12,000 x 32 slots a
+   cloud) of ray-cast scenes at batch 8 and 32 and of edge clouds (a
+   pillar of 500 points, more than 12,000 non-empty pillars, all
+   masked); ``configs/pointpillars_kitti.yaml`` with ``fused: false``
+   (full width, bf16, seed weights) through ``build_model`` and
+   ``infer`` at batch 8 and 32, 1 ``segment_paint`` and no encoder
+   launch a predict, the kernel route against the plain route, timed
+   beside the fused model with the same weights; ``pointpillars_tiny``
+   with ``fused: false`` on the card against the CPU; its train steps at
+   batch 4 (``pointpillars_fixture_hard_conv.yaml``, 2 paints a step)
+   against the plain route, a short ``train(cfg)``, the step timed;
+   ``configs/pointpillars_kitti_3class.yaml`` at full width, predict at
+   batch 8; ``infer_packed`` at batch 32 with the trained snapshot
+   bit-equal to ``infer`` on the batch it dequantizes to, within the
+   JAX package's wire bounds of the f32 ``infer``, the card's
+   dequantization bit-equal to the CPU's, both wires' bytes and
+   end-to-end ms at batch 8 and 32; ``bench_lib.run_benchmark`` at batch
+   32 with the snapshot and SECOND, and ``python -m lisec_tpu_torch.cli
+   bench`` once as a subprocess, each record on its own line;
+13. list under ``torch.profiler`` what ``pillar_canvas_fused``,
    ``fps_gather``, ``scatter_rows``, ``segment_paint``, ``gather_rows``,
    the grouping and ``spread_accumulate`` calls run (the outputs' and
    scratch's allocation and the kernels' own launches, nothing else;
@@ -141,7 +162,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    source's calls of both train steps (and the plain C = 4 gather beside
    ``torch.gather``), by kernel (after the timed phases, so that no trace
    touches them);
-13. print the ``{"kernels": [...]}`` line, the card's name and power
+14. print the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 Every comparison on the card runs with TF32 off for matrix products and
@@ -189,19 +210,10 @@ def emit(tag: str, **fields) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn()`` over ``iters`` runs, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    """Mean milliseconds of ``fn()`` over ``iters`` runs, by CUDA events
+    (``bench_lib.event_seconds``)."""
+    from lisec_tpu_torch.bench_lib import event_seconds
+    return 1e3 * event_seconds(fn, iters, warmup)
 
 
 def profiled(fn, iters: int):
@@ -720,10 +732,13 @@ def swapped_segment_ops(**new):
     ``segment_unpaint``, ``segment_max_backward``, ``pillar_decorate``,
     ``spread_accumulate``) in the modules that call them, here only: the
     package has no switch on the card."""
+    from importlib import import_module
     from lisec_tpu_torch.models import pillar_encoder
-    from lisec_tpu_torch.ops import (knn_refine, range_proj, scatter,
-                                     sparse_conv, voxelize)
+    from lisec_tpu_torch.ops import range_proj, scatter, sparse_conv
     from lisec_tpu_torch.training import assigner
+    # ``lisec_tpu_torch.ops`` exports functions named as these modules.
+    knn_refine = import_module("lisec_tpu_torch.ops.knn_refine")
+    voxelize = import_module("lisec_tpu_torch.ops.voxelize")
     saved = [(mod, name, getattr(mod, name))
              for mod in (pillar_encoder, scatter, assigner, voxelize,
                          sparse_conv, range_proj, knn_refine)
@@ -843,7 +858,7 @@ def phase_main_path(pipe, cfg):
     return launches, err
 
 
-def phase_tiny_vs_cpu(name, cfg_path, keep_sets):
+def phase_tiny_vs_cpu(name, cfg_path, keep_sets, overrides=()):
     """A small config on the card against the same on the CPU (the CPU
     path is the one the tests hold against the JAX package): the head
     maps to 1e-4 and, with ``keep_sets``, the predict's outputs. (The
@@ -856,7 +871,7 @@ def phase_tiny_vs_cpu(name, cfg_path, keep_sets):
     # Score threshold 0: the random weights' scores sit near the head's
     # prior, and every candidate then goes through NMS.
     cfg = apply_overrides(load_config(cfg_path),
-                          ["model.params.score_threshold=0.0"])
+                          ["model.params.score_threshold=0.0", *overrides])
     batch, _ = scene_batch(cfg, 4)
     outs, maps = [], []
     for d in ("cuda", "cpu"):
@@ -880,7 +895,7 @@ def phase_tiny_vs_cpu(name, cfg_path, keep_sets):
 TRAIN_STEPS = 3
 
 
-def train_config(path, num_steps, log_every=1):
+def train_config(path, num_steps, log_every=1, overrides=()):
     """A full-width training config; the overrides are no widths. These
     phases hold single steps against the plain route, so they train
     without augmentation and save no checkpoint; phase 11 runs the
@@ -888,7 +903,8 @@ def train_config(path, num_steps, log_every=1):
     from lisec_tpu_torch.config import apply_overrides, load_config
     return apply_overrides(load_config(path), [
         "data.augment.enabled=false", 'train.ckpt_dir=""',
-        f"train.num_steps={num_steps}", f"train.log_every={log_every}"])
+        f"train.num_steps={num_steps}", f"train.log_every={log_every}",
+        *overrides])
 
 
 def segment_launches():
@@ -918,7 +934,7 @@ def loss_and_grads(pipe, batch):
             {n: p.grad.clone() for n, p in pipe.model.named_parameters()})
 
 
-def phase_train_path(name, cfg_path, weights, per_step):
+def phase_train_path(name, cfg_path, weights, per_step, overrides=()):
     """Full-width train steps of config ``name`` through ``train_step``
     (from the snapshot ``weights``, or from seed initialisation), their
     launch counts (``per_step`` of each kernel) and checks; the first
@@ -930,7 +946,7 @@ def phase_train_path(name, cfg_path, weights, per_step):
     from lisec_tpu_torch.api import build_model
     from lisec_tpu_torch.data.collate import make_batches
     from lisec_tpu_torch.weights import load_weights_npz
-    cfg = train_config(cfg_path, TRAIN_STEPS)
+    cfg = train_config(cfg_path, TRAIN_STEPS, overrides=overrides)
     pipe = build_model(cfg)
     pipe.init_state(cfg.train.seed)
     if weights:
@@ -1010,7 +1026,7 @@ def phase_train_path(name, cfg_path, weights, per_step):
          gradients=len(grads_k))
 
     # The normal entry point, from seed initialisation.
-    short = train_config(cfg_path, 8, log_every=2)
+    short = train_config(cfg_path, 8, log_every=2, overrides=overrides)
     with torch.enable_grad():
         trained, history = lisec_tpu_torch.train(short, progress=False)
     torch.cuda.synchronize()
@@ -3017,7 +3033,9 @@ def rangeseg_stage_ms(pipe, dev, runs=5):
     vote; ``rest`` is the argmax, the refinement's fallback and its
     inverse permutation."""
     import torch
-    from lisec_tpu_torch.ops import knn_refine, range_proj
+    from importlib import import_module
+    from lisec_tpu_torch.ops import range_proj
+    knn_refine = import_module("lisec_tpu_torch.ops.knn_refine")
     timer = EventTimer()
     functions = [(range_proj, "segment_paint", "projection_paint"),
                  (knn_refine, "spread_accumulate", "delivery_spread"),
@@ -4112,6 +4130,377 @@ def phase_configs_as_written(tmp):
     return result
 
 
+# -- phase 12: the voxel-buffer path, the int16 wire and the bench ------------
+
+VOXEL_BUFFER = ("model.params.fused=false",)
+THREE_CLASS_CFG = os.path.join(ROOT, "configs",
+                               "pointpillars_kitti_3class.yaml")
+BENCH_OVERRIDES = ("data.fixture=true", "data.fixture_size=8",
+                   "data.augment.enabled=false", "train.ckpt_dir=")
+VOXEL_BUFFER_LAUNCHES_PER_PREDICT = {
+    "pillar_canvas_fused": 0, "segment_paint": 1, "segment_unpaint": 0,
+    "spread_accumulate": 0, "fps": 0, "gather_rows": 0, "scatter_rows": 0}
+# The voxelizer's paint and the assigner's; no unpaint (autograd's gather
+# is the scatter's backward).
+VOXEL_BUFFER_LAUNCHES_PER_TRAIN_STEP = {
+    "segment_paint": 2, "segment_unpaint": 0, "spread_accumulate": 0}
+ENCODER_ONLY = {**VOXEL_BUFFER_LAUNCHES_PER_PREDICT,
+                "pillar_canvas_fused": 1, "segment_paint": 0}
+
+
+def voxel_table_call(pipe, batch):
+    """The one ``segment_paint`` call the voxelizer makes on a batch (its
+    (B, N, 8) rows into the (B, P * K, 8) slot table), recorded as
+    (vals, ids, num_cells, num_max, split), and the voxelizer's output."""
+    import torch
+    calls = {}
+    dev = pipe.device_batch(batch)
+    with recorded_segment_calls(calls):
+        vox = pipe._voxelize_batch(dev["points"], dev["point_mask"])
+    torch.cuda.synchronize()
+    (call,) = calls["segment_paint"]
+    return call, vox
+
+
+def phase_voxel_table_kernel_check(pipe, cfg):
+    """``segment_paint`` bit-equal to its plain version on the voxel
+    table's calls: ray-cast scenes at batch 8 and 32, and four edge
+    clouds (a ray-cast scene; one with 500 points in one pillar, more
+    than K = 32; 32,768 points spread over the whole range, more than
+    P = 12,000 non-empty pillars; one with every point masked). Every
+    slot holds at most one row, so the sums are placements and the
+    tables equal bit for bit. Returns the batch-8 and batch-32 calls."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    batches = {f"ray_cast_b{b}": scene_batch(cfg, b)[0] for b in (8, 32)}
+    edge, _ = scene_batch(cfg, 4, seed0=200)
+    rng = torch.Generator().manual_seed(12)
+    r = cfg.voxel.point_cloud_range
+    crowd = torch.rand((500, 4), generator=rng) * torch.tensor(
+        [0.15, 0.15, 2.0, 1.0]) + torch.tensor([10.0, 0.0, -2.0, 0.0])
+    edge["points"][1, :500] = crowd.numpy()
+    edge["point_mask"][1, :500] = True
+    n = edge["points"].shape[1]
+    spread = torch.rand((n, 4), generator=rng) * torch.tensor(
+        [r[3] - r[0], r[4] - r[1], r[5] - r[2], 1.0]) + torch.tensor(
+        [r[0], r[1], r[2], 0.0])
+    edge["points"][2] = spread.numpy()
+    edge["point_mask"][2] = True
+    edge["point_mask"][3] = False
+    batches["edges"] = edge
+    kk = cfg.budget.max_points_per_voxel
+    calls = {}
+    for case, batch in batches.items():
+        (vals, ids, nc, num_max, split), vox = voxel_table_call(pipe, batch)
+        got = sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max)
+        torch.cuda.synchronize()
+        ref = sp.segment_paint_reference(vals, ids, num_cells=nc,
+                                         num_max=num_max)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"segment_paint voxel table {case}: "
+                f"{int((got != ref).sum())} elements differ")
+        if case == "edges":
+            nv, npts = vox.num_voxels.tolist(), vox.num_points
+            if (int(npts[1].max()) != kk or nv[2] != cfg.budget.max_voxels
+                    or nv[3] != 0 or int(npts[3].sum()) != 0
+                    or bool(got[3].any())):
+                raise AssertionError(f"voxel table edges: num_voxels {nv}, "
+                                     f"largest pillar {int(npts[1].max())}")
+        emit("kernel_check", kernel="segment_paint", case=f"voxel_{case}",
+             shape=list(got.shape), num_max=num_max, table="bit-equal",
+             rows_placed=int(((ids >= 0) & (ids < nc)).sum()),
+             num_voxels=vox.num_voxels.tolist(),
+             largest_pillar=int(vox.num_points.max()))
+        calls[case] = (vals, ids, nc, num_max, split)
+    return calls
+
+
+def predict_ms(pipe, dev, iters=10):
+    """Device-resident predict and model forward (ms, CUDA events)."""
+    import torch
+    with torch.no_grad():
+        return (cuda_ms(lambda: pipe.predict(dev), iters),
+                cuda_ms(lambda: pipe.model(*pipe._model_args(dev)), iters))
+
+
+def voxel_buffer_snapshot(path):
+    """The trained snapshot as the voxel-buffer model's ``state_dict``: the
+    fused encoder's kernel and BatchNorm are the feature net's Dense and
+    BatchNorm (the same nine features in the same order; the fused
+    encoder folds that BatchNorm only at inference), so they are renamed;
+    the backbone and head stay as they are."""
+    import numpy as np
+    from lisec_tpu_torch.weights import convert_flax_arrays
+    with np.load(path) as data:
+        flat = {}
+        for key in data.files:
+            col, module, leaf = (key.split("/") + [""])[:3]
+            if module == "FusedPillarEncoder_0":
+                layer = "Dense_0" if leaf == "kernel" else "BatchNorm_0"
+                flat[f"{col}/PillarFeatureNet_0/{layer}/{leaf}"] = data[key]
+            else:
+                flat[key] = data[key]
+    return convert_flax_arrays(flat, "pointpillars")
+
+
+def voxel_buffer_predict(pipe, cfg, fused_pipe, b, weights):
+    """One voxel-buffer predict at batch ``b`` through ``infer``, its
+    launches (the counts set to 0 just before, read just after), the
+    kernel route against the plain route, and the device-resident predict
+    and forward timed beside the fused model's with the same weights."""
+    import torch
+    from lisec_tpu_torch.api import infer
+    batch, gts = scene_batch(cfg, b)
+    zero_all_launches()
+    out = infer(pipe, batch)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != VOXEL_BUFFER_LAUNCHES_PER_PREDICT:
+        raise AssertionError(f"voxel-buffer predict at batch {b} "
+                             f"launched {launches}")
+    for k in ("boxes", "scores"):
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"voxel-buffer predict: non-finite {k}")
+    if out["boxes"].shape != (b, cfg.budget.nms_post, 7):
+        raise AssertionError(f"voxel-buffer boxes "
+                             f"{tuple(out['boxes'].shape)}")
+    with plain_segment_ops():
+        plain = infer(pipe, batch)
+    torch.cuda.synchronize()
+    if all_launches() != launches:
+        raise AssertionError("the plain voxel-buffer run launched a kernel")
+    same_outputs(out, plain, f"voxel-buffer kernel vs plain route b{b}",
+                 1e-3)
+    fused = infer(fused_pipe, batch)
+    dev = pipe.device_batch(batch)
+    # In turns: fused, voxel buffer, voxel buffer, fused.
+    f1 = predict_ms(fused_pipe, dev)
+    v1 = predict_ms(pipe, dev)
+    v2 = predict_ms(pipe, dev)
+    f2 = predict_ms(fused_pipe, dev)
+    row = dict(config="pointpillars_kitti", overrides=list(VOXEL_BUFFER),
+               weights=weights, batch=b, launches=launches,
+               kept_per_cloud=out["valid"].sum(1).tolist(),
+               recall_at_iou_half=recall_at_half(out, gts),
+               fused_kept_per_cloud=fused["valid"].sum(1).tolist(),
+               fused_recall_at_iou_half=recall_at_half(fused, gts),
+               plain_route="keep sets and labels equal, boxes within 1e-3",
+               ms_per_batch=cuda_ms(lambda: infer(pipe, batch), 10),
+               device_resident_ms=[v1[0], v2[0]],
+               model_forward_ms=[v1[1], v2[1]],
+               fused_device_resident_ms=[f1[0], f2[0]],
+               fused_model_forward_ms=[f1[1], f2[1]])
+    return row, dev
+
+
+def phase_voxel_buffer_path(pipe, cfg, seed_fused, trained_fused,
+                            table_calls):
+    """``configs/pointpillars_kitti.yaml`` with ``fused: false`` at full
+    width (bf16) through ``build_model`` and ``infer`` at batch 8 and 32:
+    1 ``segment_paint`` and no encoder launch a predict, the kernel route
+    against the plain route (boxes within 1e-3, keep sets and labels
+    equal), timed beside the fused model with the same weights: the seed
+    weights, then the trained snapshot (``voxel_buffer_snapshot``), where
+    the two models keep boxes and their recall can be read side by side.
+    Returns the launches a predict and the voxel-table calls' timing
+    rows."""
+    out_rows = {}
+    for b in (8, 32):
+        row, dev = voxel_buffer_predict(pipe, cfg, seed_fused, b, "seed 0")
+        vox = pipe._voxelize_batch(dev["points"], dev["point_mask"])
+        out_rows[b] = paint_call_row(*table_calls[f"ray_cast_b{b}"])
+        emit("voxel_buffer_predict", **row,
+             voxelize_ms=cuda_ms(lambda: pipe._voxelize_batch(
+                 dev["points"], dev["point_mask"]), 10),
+             num_voxels=vox.num_voxels.tolist(),
+             voxel_table_paint=out_rows[b])
+    seed_state = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+    pipe.model.load_state_dict(voxel_buffer_snapshot(WEIGHTS), strict=True)
+    for b in (8, 32):
+        row, _ = voxel_buffer_predict(pipe, cfg, trained_fused, b,
+                                      os.path.relpath(WEIGHTS, ROOT))
+        if not any(row["kept_per_cloud"]):
+            raise AssertionError("voxel-buffer predict with the snapshot "
+                                 "kept no box")
+        emit("voxel_buffer_predict", **row)
+    pipe.model.load_state_dict(seed_state)
+    return row["launches"], out_rows
+
+
+def phase_three_class():
+    """The shipped 3-class config at full width (seed weights): predict
+    at batch 8 on the card, one ``pillar_canvas_fused`` launch."""
+    import torch
+    from lisec_tpu_torch.api import build_model, infer, load_config
+    cfg = load_config(THREE_CLASS_CFG)
+    pipe = build_model(cfg)
+    batch, _ = scene_batch(cfg, 8)
+    zero_all_launches()
+    out = infer(pipe, batch)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != ENCODER_ONLY:
+        raise AssertionError(f"3-class predict launched {launches}")
+    ny, nx = pipe.fmap
+    labels = out["labels"][out["valid"]]
+    if (pipe.anchors.shape != (ny * nx * 6, 7)
+            or not torch.isfinite(out["boxes"]).all()
+            or out["boxes"].shape != (8, cfg.budget.nms_post, 7)
+            or not bool(((labels >= 0) & (labels < 3)).all())):
+        raise AssertionError("3-class predict: anchors, boxes or labels")
+    # Seed weights keep nothing at the config's threshold; at 0 every
+    # candidate goes through the three classes' NMS.
+    pipe.score_thr = 0.0
+    all_kept = infer(pipe, batch)
+    kept_labels = all_kept["labels"][all_kept["valid"]]
+    per_class = torch.bincount(kept_labels.long(), minlength=3).tolist()
+    if len(per_class) != 3 or min(per_class) == 0:
+        raise AssertionError(f"3-class predict at threshold 0: labels "
+                             f"{per_class}")
+    emit("three_class_predict", config="pointpillars_kitti_3class", batch=8,
+         launches=launches, anchors=list(pipe.anchors.shape),
+         kept_per_cloud=out["valid"].sum(1).tolist(),
+         labels_kept=torch.bincount(labels.long(), minlength=3).tolist(),
+         kept_per_cloud_threshold_0=all_kept["valid"].sum(1).tolist(),
+         labels_kept_threshold_0=per_class)
+    return launches["pillar_canvas_fused"]
+
+
+def e2e_ms(call):
+    """Wall ms per call, each ending with its boxes on the host
+    (``bench_lib.wall_seconds``: 2 warm-ups, 10 calls)."""
+    from lisec_tpu_torch.bench_lib import wall_seconds
+    return 1e3 * wall_seconds(call, 2, 10)
+
+
+def wire_box_match(a, b, tol=0.05):
+    """The JAX package's wire bound on boxes (``tests/test_wire.py``:
+    |d| <= 0.05 + 0.05 |b|), box by box: a kept box of one wire matches
+    a kept box of the other in the same cloud when every one of its
+    seven numbers lies within it. NMS output slots shift when a box near
+    the threshold enters or leaves a keep set, so boxes are matched, not
+    slots. Returns (boxes of either side without a match, boxes kept on
+    both sides, the largest |d| over matched pairs)."""
+    unmatched = kept = 0
+    worst = 0.0
+    for i in range(a["boxes"].shape[0]):
+        x = a["boxes"][i][a["valid"][i]]
+        y = b["boxes"][i][b["valid"][i]]
+        kept += len(x) + len(y)
+        if not (len(x) and len(y)):
+            unmatched += len(x) + len(y)
+            continue
+        d = (x[:, None, :] - y[None, :, :]).abs()
+        ok = (d <= tol + tol * y.abs()[None]).all(-1)
+        unmatched += int((~ok.any(1)).sum()) + int((~ok.any(0)).sum())
+        if bool(ok.any()):
+            worst = max(worst, float(d.amax(-1)[ok].max()))
+    return unmatched, kept, worst
+
+
+def phase_wire(pipe, cfg):
+    """The int16 wire on the main path (trained snapshot, batch 32):
+    ``infer_packed`` bit-equal to ``infer`` on the batch it dequantizes
+    to, one ``pillar_canvas_fused`` launch; within the JAX package's
+    ``tests/test_wire.py`` bounds of the f32 ``infer`` (valid agreement
+    above 0.95, boxes 0.05); the card's dequantization bit-equal to the
+    CPU's; both wires' host-to-device bytes; the end-to-end ms of both at
+    batch 8 and 32, in turns. Returns the launches of one
+    ``infer_packed``."""
+    import numpy as np
+    import torch
+    from lisec_tpu_torch.data.wire import pack_points_q16, unpack_points_q16
+    batch, _ = scene_batch(cfg, 32)
+    packed = pack_points_q16(batch["points"], batch["point_mask"])
+    zero_all_launches()
+    out = pipe.infer_packed(packed)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != ENCODER_ONLY:
+        raise AssertionError(f"infer_packed launched {launches}")
+    deq = unpack_points_q16(pipe.device_batch(packed))
+    host = unpack_points_q16({k: torch.from_numpy(v)
+                              for k, v in packed.items()})
+    if not (torch.equal(deq["points"].cpu().view(torch.int32),
+                        host["points"].view(torch.int32))
+            and torch.equal(deq["point_mask"].cpu(), host["point_mask"])):
+        raise AssertionError("the card's dequantization differs from the "
+                             "CPU's")
+    ref = pipe.infer({k: deq[k] for k in ("points", "point_mask")})
+    for k in out:
+        if not torch.equal(out[k], ref[k]):
+            raise AssertionError(f"infer_packed {k} differs from infer on "
+                                 "the dequantized batch")
+    f32 = pipe.infer(batch)
+    agree = float((f32["valid"] == out["valid"]).float().mean())
+    unmatched, kept, box_err = wire_box_match(out, f32)
+    if agree <= 0.95 or unmatched > 0.05 * kept:
+        raise AssertionError(f"int16 vs f32 wire: valid agreement {agree}, "
+                             f"{unmatched} of {kept} boxes unmatched")
+    h2d = {"int16": int(sum(np.asarray(v).nbytes for v in packed.values())),
+           "f32": int(batch["points"].nbytes + batch["point_mask"].nbytes)}
+    times = {}
+    for b in (8, 32):
+        bb, _ = scene_batch(cfg, b)
+        pk = pack_points_q16(bb["points"], bb["point_mask"])
+        i1 = e2e_ms(lambda: pipe.infer_packed(pk))
+        f1 = e2e_ms(lambda: pipe.infer(bb))
+        f2 = e2e_ms(lambda: pipe.infer(bb))
+        i2 = e2e_ms(lambda: pipe.infer_packed(pk))
+        t0 = time.perf_counter()
+        for _ in range(10):
+            pack_points_q16(bb["points"], bb["point_mask"])
+        times[b] = {"int16_e2e_ms": [i1, i2], "f32_e2e_ms": [f1, f2],
+                    "host_pack_ms": (time.perf_counter() - t0) / 10 * 1e3}
+    emit("wire", config="pointpillars_kitti", batch=32, launches=launches,
+         infer_packed_vs_dequantized_infer="bit-equal",
+         card_vs_cpu_dequantization="bit-equal",
+         valid_agreement_with_f32=agree, boxes_kept=kept,
+         boxes_without_a_match_within_0_05=unmatched,
+         matched_box_max_abs_diff=box_err,
+         h2d_bytes=h2d, h2d_saved_bytes=h2d["f32"] - h2d["int16"],
+         e2e=times)
+    return launches["pillar_canvas_fused"]
+
+
+def phase_bench():
+    """``run_benchmark`` in this process at batch 32 with the trained
+    snapshot and SECOND, and ``python -m lisec_tpu_torch.cli bench`` once
+    as a subprocess (batch 8, seed weights); each record printed on its
+    own line."""
+    import torch
+    from lisec_tpu_torch.bench_lib import run_benchmark
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    cfg = apply_overrides(load_config(KITTI_CFG), list(BENCH_OVERRIDES))
+    t0 = time.perf_counter()
+    record = run_benchmark(cfg, batch_size=32, include_second=True,
+                           weights_path=WEIGHTS)
+    emit("bench", source="run_benchmark", batch=32,
+         seconds=time.perf_counter() - t0, record=record)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "lisec_tpu_torch.cli", "bench", KITTI_CFG,
+         *BENCH_OVERRIDES], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"cli bench exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    cli_record = json.loads(res.stdout.strip().splitlines()[-1])
+    emit("bench", source="cli", batch=8, seconds=time.perf_counter() - t0,
+         record=cli_record)
+    name = torch.cuda.get_device_name(0)
+    for rec in (record, cli_record):
+        d = rec["detail"]
+        if d["device"] != name or not all(
+                rec[k] > 0 for k in ("device_clouds_per_sec",
+                                     "e2e_clouds_per_sec")) \
+                or d["e2e_f32_clouds_per_sec"] <= 0:
+            raise AssertionError(f"bench record: {rec}")
+    if "second_clouds_per_sec" not in record["detail"]:
+        raise AssertionError("run_benchmark left SECOND out")
+
+
 # What one call of each wrapper launches where the device-time phase
 # checks it, by kernel name.
 DEVICE_LAUNCHES = {
@@ -4289,6 +4678,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from lisec_tpu_torch.api import build_model, load_config
+    from lisec_tpu_torch.config import apply_overrides
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
     from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
@@ -4356,6 +4746,22 @@ def main() -> int:
         ("pointnet2_modelnet40", pn2_pipe, pn2_cfg, pn2_first)))
     with tempfile.TemporaryDirectory() as tmp:
         shipped = phase_configs_as_written(tmp)
+    vb_cfg = apply_overrides(load_config(KITTI_CFG), list(VOXEL_BUFFER))
+    vb_pipe = build_model(vb_cfg)                  # weights from seed 0
+    table_calls = phase_voxel_table_kernel_check(vb_pipe, vb_cfg)
+    vb_launches, vb_rows = phase_voxel_buffer_path(
+        vb_pipe, vb_cfg, build_model(load_config(KITTI_CFG)), pipe,
+        table_calls)
+    phase_tiny_vs_cpu("pointpillars_tiny_voxel_buffer", TINY_CFG,
+                      keep_sets=True, overrides=VOXEL_BUFFER)
+    vb_name = "pointpillars_fixture_hard_conv_voxel_buffer"
+    vb_train = phase_train_path(vb_name, TRAIN_CFG, None,
+                                VOXEL_BUFFER_LAUNCHES_PER_TRAIN_STEP,
+                                overrides=VOXEL_BUFFER)
+    vb_train_rows = phase_train_timing(vb_name, *vb_train[:3])
+    three_class_launches = phase_three_class()
+    packed_launches = phase_wire(pipe, cfg)
+    phase_bench()
     phase_profile_listing()
     phase_device_times()
 
@@ -4379,7 +4785,11 @@ def main() -> int:
                                       "bound_by", "library_ms", "device_ms",
                                       "device_parts")},
         "kernel_launches_per_call": 2, "batch_32": timing[32],
-        "launches_cli_infer_from_checkpoint": shipped["cli_launches"]}]
+        "launches_cli_infer_from_checkpoint": shipped["cli_launches"],
+        "launches_per_voxel_buffer_predict":
+            vb_launches["pillar_canvas_fused"],
+        "launches_per_infer_packed": packed_launches,
+        "launches_per_three_class_predict": three_class_launches}]
     # The segment kernels: the times of one PointPillars train step's
     # calls together (three paints; the unpaint source's decoration and
     # segment-max backward), each call also on its own under "calls". No
@@ -4424,8 +4834,19 @@ def main() -> int:
                     c["write_floor_ms"] for c in second_train_rows[name])}
                if mod is su else {}),
             **({"second_predict": summed(second_paints),
-                "second_predict_calls": second_paints, **rangeseg(name)}
-               if mod is sp else {})})
+                "second_predict_calls": second_paints, **rangeseg(name),
+                # The voxel-buffer PointPillars: the voxel table's call
+                # at batch 8 and 32 (bit-equal to the plain version).
+                "launches_per_voxel_buffer_predict":
+                    vb_launches["segment_paint"],
+                "voxel_table_max_abs_err": 0.0,
+                "voxel_table_batch_8": vb_rows[8],
+                "voxel_table_batch_32": vb_rows[32]}
+               if mod is sp else {}),
+            "launches_per_voxel_buffer_train_step":
+                vb_train[3][name] / TRAIN_STEPS,
+            "voxel_buffer_train_step": summed(vb_train_rows[name])
+            if vb_train_rows[name] else None})
     # The spread kernel: the nine calls of one SECOND predict at batch 8
     # together; the nine of a train step at batch 4 beside them.
     name = sa.KERNEL_INFO["name"]

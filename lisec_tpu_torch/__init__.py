@@ -30,8 +30,11 @@ counterpart. Training saves checkpoints to ``train.ckpt_dir`` and
 resumes from them (``train.resume``), with the detectors' augmentation
 (GT sampling, per-box noise, global transforms), the TensorBoard mirror
 and NaN checks; ``python -m lisec_tpu_torch.cli`` has ``train``,
-``eval`` and ``infer``. Multi-host and data-parallel training are not
-ported yet and raise ``NotImplementedError`` when a config asks for
+``eval``, ``infer`` and ``bench`` (``bench_lib.run_benchmark``, on the
+card). Serving also takes the int16 wire (``data/wire.py``,
+``Pipeline.infer_packed``), and ``model.params.fused: false`` builds the
+voxel-buffer PointPillars. Multi-host and data-parallel training are
+not ported yet and raise ``NotImplementedError`` when a config asks for
 them. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")

@@ -7,13 +7,16 @@
 
 Every verb runs on the card. ``infer`` restores the latest checkpoint of
 ``--ckpt`` (else of ``train.ckpt_dir``) before it predicts and prints
-the first cloud's outputs as JSON. ``bench`` is not ported yet.
+the first cloud's outputs as JSON. ``bench`` prints one JSON line of
+``bench_lib.run_benchmark``; it measures on the card only.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+
+import torch
 
 from lisec_tpu_torch.config import apply_overrides, load_config
 
@@ -61,9 +64,11 @@ def main(argv=None, device="cuda"):
              if k != "logits"}, indent=2))
         return out
     elif args.command == "bench":
-        raise NotImplementedError(
-            "bench is not ported to lisec_tpu_torch yet (ROADMAP A4: an "
-            "H100 benchmark entry)")
+        if torch.device(device).type != "cuda":
+            raise ValueError("bench measures on the card; there is no "
+                             f"{device!r} benchmark")
+        from lisec_tpu_torch.bench_lib import run_benchmark
+        print(json.dumps(run_benchmark(cfg)))
 
 
 if __name__ == "__main__":

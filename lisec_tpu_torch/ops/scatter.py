@@ -1,7 +1,14 @@
-"""Differentiable sorted segment reductions (port of ``segment_max_sorted``
-and ``segment_sum_dense`` from ``lisec_tpu/ops/scatter.py``).
+"""Pillar scatters and differentiable sorted segment reductions (port of
+``lisec_tpu/ops/scatter.py``).
 
-Both run the paint kernel forward and a kernel of the unpaint source
+``pillar_scatter`` and ``pillar_scatter_max`` are XLA scatters in the
+JAX package, not Pallas kernels, so they are plain PyTorch here: an
+``index_copy`` and a ``scatter_reduce`` onto a table with a trash row
+that is sliced off, with the JAX ``mode="drop"`` semantics. The
+scatter's gradient is autograd's gather of the canvas cotangent.
+
+``segment_max_sorted`` and ``segment_sum_dense``
+run the paint kernel forward and a kernel of the unpaint source
 backward (``lisec_tpu_torch/ops/cuda/segment_paint.py``,
 ``segment_unpaint.py``; on CPU tensors those wrappers compute their
 plain versions): the segment max's whole backward is one
@@ -24,6 +31,61 @@ import torch
 from lisec_tpu_torch.ops.cuda.segment_paint import segment_paint
 from lisec_tpu_torch.ops.cuda.segment_unpaint import (
     segment_max_backward, segment_unpaint)
+
+
+def _drop_to_trash(index: torch.Tensor, size: int) -> torch.Tensor:
+    """Row ``index`` of a table of ``size`` rows plus a trash row, as a
+    JAX ``mode="drop"`` scatter places it: a negative index counts from
+    the end (so -1 is the trash row); one still outside ``[0, size]`` is
+    dropped, here into the trash row."""
+    index = torch.where(index < 0, index + size + 1, index)
+    return torch.where((index < 0) | (index > size), size, index)
+
+
+def pillar_scatter(pillar_features: torch.Tensor, coords: torch.Tensor,
+                   num_voxels: torch.Tensor, *, ny: int, nx: int
+                   ) -> torch.Tensor:
+    """Scatter (..., P, C) pillar features to a (..., C, ny, nx) canvas
+    by coords (..., P, 3) [z, y, x].
+
+    A pillar is invalid when its rank is >= ``num_voxels`` (...,) or its
+    y is negative; it writes to the trash row. Each valid pillar owns its
+    cell (the voxelizer gives one pillar a cell), so the copy has no
+    race. The canvas is the NCHW view of channels-last memory, as the
+    backbone takes it."""
+    lead, (p, c) = pillar_features.shape[:-2], pillar_features.shape[-2:]
+    feats = pillar_features.reshape(-1, p, c)
+    coords = coords.reshape(-1, p, 3)
+    b = feats.shape[0]
+    cells = ny * nx
+    valid = ((torch.arange(p, device=feats.device)[None, :]
+              < num_voxels.reshape(-1, 1)) & (coords[..., 1] >= 0))
+    lin = coords[..., 1].long() * nx + coords[..., 2].long()
+    lin = _drop_to_trash(torch.where(valid, lin, cells), cells)
+    # One trash row after all clouds' cells, so that the canvas is one
+    # contiguous channels-last block.
+    rows = torch.where(lin == cells, b * cells, lin + torch.arange(
+        b, device=feats.device)[:, None] * cells).reshape(-1)
+    canvas = feats.new_zeros((b * cells + 1, c)).index_copy(
+        0, rows, feats.reshape(-1, c))[:-1]
+    return canvas.view(*lead, ny, nx, c).movedim(-1, -3)
+
+
+def pillar_scatter_max(point_features: torch.Tensor,
+                       point_voxel: torch.Tensor, *,
+                       num_cells: int) -> torch.Tensor:
+    """Scatter-max per-point features (N, C) into per-cell slots by
+    ``point_voxel`` (N,), -1 = dropped: (num_cells, C), zeros where a
+    cell is empty (every non-finite max becomes 0)."""
+    idx = _drop_to_trash(
+        torch.where(point_voxel >= 0, point_voxel, num_cells).long(),
+        num_cells)
+    c = point_features.shape[1]
+    out = torch.full((num_cells + 1, c), -torch.inf,
+                     dtype=point_features.dtype,
+                     device=point_features.device).scatter_reduce(
+        0, idx[:, None].expand(-1, c), point_features, "amax")[:-1]
+    return torch.where(torch.isfinite(out), out, 0.0)
 
 
 def _with_ones(h: torch.Tensor) -> torch.Tensor:

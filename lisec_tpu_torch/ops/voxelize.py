@@ -177,3 +177,15 @@ def voxelize_mean_batch(points: torch.Tensor, point_mask: torch.Tensor, *,
     coords = (table[..., c + 1:].round() - 1.0).to(torch.int32)
     return VoxelizeMeanResult(feats, coords, cnt.round().to(torch.int32),
                               bins.num_voxels)
+
+
+def voxelize(points: torch.Tensor, point_mask: torch.Tensor, *,
+             pc_range: Sequence[float], voxel_size: Sequence[float],
+             grid_size: Tuple[int, int, int], max_voxels: int,
+             max_points_per_voxel: int) -> VoxelizationResult:
+    """Single-cloud :func:`voxelize_batch`: points (N, C), mask (N,)."""
+    out = voxelize_batch(
+        points[None], point_mask[None], pc_range=pc_range,
+        voxel_size=voxel_size, grid_size=grid_size, max_voxels=max_voxels,
+        max_points_per_voxel=max_points_per_voxel)
+    return VoxelizationResult(*(x[0] for x in out))

@@ -19,6 +19,7 @@ import torch
 
 from lisec_tpu_torch.config import Config
 from lisec_tpu_torch.data.collate import make_batches
+from lisec_tpu_torch.data.wire import unpack_points_q16
 from lisec_tpu_torch.training.optim import make_optimizer
 
 
@@ -148,6 +149,17 @@ class Pipeline:
         """Batch (numpy arrays or tensors) in, outputs on the device out."""
         self.model.eval()
         return self.predict(self.device_batch(batch))
+
+    @torch.no_grad()
+    def infer_packed(self, packed: Dict[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+        """``infer`` from the int16 wire format (``data/wire.py``): the
+        codes, counts and bounds cross to the device as they are, about
+        half the bytes of ``infer``'s f32 points and bool mask, and are
+        dequantized there. Pack on the host with
+        ``data.wire.pack_points_q16``."""
+        self.model.eval()
+        return self.predict(unpack_points_q16(self.device_batch(packed)))
 
     def eval_outputs(self, split: str, max_batches: int = 0
                      ) -> Iterator[Tuple[Dict[str, np.ndarray],

@@ -2,8 +2,10 @@
 ``lisec_tpu/pipelines/detection.py::PointPillarsPipeline`` and
 ``SECONDPipeline``).
 
-Inference: points + mask -> encoder (the fused pillar encoder, or
-voxelize + mean-VFE + the sparse middle encoder) -> backbone -> head ->
+Inference: points + mask -> encoder (the fused pillar encoder; with
+``model.params.fused: false`` voxelize + the pillar feature net + the
+pillar scatter; for SECOND voxelize + mean-VFE + the sparse middle
+encoder) -> backbone -> head ->
 score preselect -> decode -> direction-bin yaw -> rotated NMS ->
 boxes/scores/labels/valid. Training assigns targets on the device and
 uses the focal / smooth-L1 with sin-difference / direction loss recipe.
@@ -23,11 +25,12 @@ from lisec_tpu_torch.data.augment import GTSampler, augment_detection
 from lisec_tpu_torch.data.kitti import KittiDetection
 from lisec_tpu_torch.eval.detection import match_frame
 from lisec_tpu_torch.eval.kitti_ap import collect_detections, kitti_ap
-from lisec_tpu_torch.models.pointpillars import PointPillarsFused
+from lisec_tpu_torch.models.pointpillars import (
+    PointPillars, PointPillarsFused)
 from lisec_tpu_torch.models.second import SECONDNet
 from lisec_tpu_torch.ops.boxes import decode_boxes
 from lisec_tpu_torch.ops.nms import rotated_nms, top_k
-from lisec_tpu_torch.ops.voxelize import voxelize_mean_batch
+from lisec_tpu_torch.ops.voxelize import voxelize_batch, voxelize_mean_batch
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.assigner import (
@@ -95,17 +98,18 @@ class PointPillarsPipeline(Pipeline):
         self.assign_window = min(int(p.get("assign_window", 32)),
                                  min(self.fmap))
 
-    def build_model(self, cfg: Config) -> PointPillarsFused:
+    def build_model(self, cfg: Config):
+        """``PointPillarsFused`` (``fused``, the default) or the
+        voxel-buffer ``PointPillars``. ``fast_encoder`` selects in the
+        JAX package between its encoder kernel, which routes each cell's
+        max through one bf16 value, and its exact XLA encoder; the port's
+        kernel computes the exact canvas, so both values run it."""
         p = cfg.model.params
-        if not p.get("fused", True):
-            raise NotImplementedError(
-                "the voxel-buffer PointPillars path (fused: false) is not "
-                "ported yet")
-        return PointPillarsFused(
+        self.fused = bool(p.get("fused", True))
+        common = dict(
             num_classes=self.num_classes,
             grid_size=self.grid,
             voxel_size=tuple(cfg.voxel.voxel_size[:2]),
-            pc_range=tuple(cfg.voxel.point_cloud_range),
             num_anchors_per_cell=self.num_classes * 2,
             pfn_filters=int(p.get("pfn_filters", 64)),
             backbone_layers=tuple(p.get("backbone_layers", [3, 5, 5])),
@@ -118,6 +122,11 @@ class PointPillarsPipeline(Pipeline):
                                             [128, 128, 128])),
             dtype=_DTYPES[p.get("dtype", "float32")],
         )
+        if self.fused:
+            return PointPillarsFused(
+                pc_range=tuple(cfg.voxel.point_cloud_range), **common)
+        return PointPillars(
+            pc_range_min=tuple(cfg.voxel.point_cloud_range[:2]), **common)
 
     # -- data --------------------------------------------------------------
 
@@ -152,9 +161,22 @@ class PointPillarsPipeline(Pipeline):
                       for b, c, m in zip(*gts)]
             return type(frames[0])(*(torch.stack(f) for f in zip(*frames)))
 
+    def _voxelize_batch(self, points, point_mask):
+        cfg = self.cfg
+        return voxelize_batch(
+            points, point_mask, pc_range=cfg.voxel.point_cloud_range,
+            voxel_size=cfg.voxel.voxel_size, grid_size=self.grid,
+            max_voxels=cfg.budget.max_voxels,
+            max_points_per_voxel=cfg.budget.max_points_per_voxel)
+
     def _model_args(self, batch):
-        """What the model's forward takes from a batch."""
-        return batch["points"], batch["point_mask"]
+        """What the model's forward takes from a batch: the points and
+        mask, or for the voxel-buffer model the voxelizer's table (no
+        gradient flows into it)."""
+        if self.fused:
+            return batch["points"], batch["point_mask"]
+        vox = self._voxelize_batch(batch["points"], batch["point_mask"])
+        return vox.voxels, vox.coords, vox.num_points, vox.num_voxels
 
     def loss(self, batch):
         preds = self.model(*self._model_args(batch))

@@ -41,6 +41,11 @@ RangeSegNet's map by position (``lisec_tpu_torch/models/rangeseg.py``):
 the number of top-level ``ConvTranspose_i``, and every one of them is a
 transposed kernel.
 
+The voxel-buffer PointPillars (``FLAX_KEYS`` ``"pointpillars"``) maps
+``PillarFeatureNet_0/Dense_0`` -> ``pfn.dense`` and
+``PillarFeatureNet_0/BatchNorm_0`` -> ``pfn.bn``, its backbone and head
+as the fused model's.
+
 The classifiers name their map: their classes' ``FLAX_KEYS``
 (``"pointnet_cls"``, ``"pointnet2_cls"``) go to ``convert_flax_arrays``
 as ``keys``; RangeSegNet's is ``"rangeseg"``. Without ``keys`` the
@@ -250,18 +255,46 @@ def _pointnet2_cls_name(key: str) -> str:
     return f"head.{kind}.{m['k']}.{leaf}"
 
 
+_PFN_KEY = re.compile(r"(params|batch_stats)/PillarFeatureNet_0/"
+                      r"(Dense_0|BatchNorm_0)/(kernel|scale|bias|mean|var)$")
+_PFN_LAYERS = {"Dense_0": "dense", "BatchNorm_0": "bn"}
+
+
+def _pointpillars_name(key: str) -> str:
+    """Flat flax key of the voxel-buffer PointPillars -> ``state_dict``
+    name."""
+    m = _PFN_KEY.match(key)
+    if m is None:
+        return _modules_name(key)
+    leaf = "weight" if m[3] == "kernel" else m[3]
+    return f"pfn.{_PFN_LAYERS[m[2]]}.{leaf}"
+
+
+def _pointpillars_flax_key(name: str) -> str:
+    """Voxel-buffer PointPillars ``state_dict`` name -> flat flax key."""
+    part, _, rest = name.partition(".")
+    if part != "pfn":
+        return _flax_key(name)
+    layer, leaf = rest.split(".")
+    col = "batch_stats" if leaf in _BUFFERS else "params"
+    flax_layer = {v: k for k, v in _PFN_LAYERS.items()}[layer]
+    return (f"{col}/PillarFeatureNet_0/{flax_layer}/"
+            f"{'kernel' if leaf == 'weight' else leaf}")
+
+
 def convert_flax_arrays(flat: Dict[str, np.ndarray],
                         keys: Optional[str] = None
                         ) -> Dict[str, torch.Tensor]:
     """Flat flax arrays -> the ``state_dict`` of the port's
     PointPillarsFused, SECONDNet, PointNet2PartSeg or RangeSegNet, or of
     the model whose ``FLAX_KEYS`` is ``keys`` (PointNetCls,
-    PointNet2Cls).
+    PointNet2Cls, the voxel-buffer PointPillars).
 
     Raises KeyError on a key it cannot place."""
     levels = sum(1 for key in flat if _RANGESEG_UP.match(key))
     name = {"pointnet_cls": _pointnet_cls_name,
-            "pointnet2_cls": _pointnet2_cls_name}.get(keys)
+            "pointnet2_cls": _pointnet2_cls_name,
+            "pointpillars": _pointpillars_name}.get(keys)
     if name is None:
         name = ((lambda key: _rangeseg_name(key, levels)) if levels
                 else _modules_name)
@@ -350,7 +383,8 @@ def to_flax_arrays(model: nn.Module,
     flax_key = {
         "rangeseg": lambda name: _rangeseg_flax_key(name, len(model.up)),
         "pointnet_cls": _pointnet_cls_flax_key,
-        "pointnet2_cls": _pointnet2_flax_key}.get(keys, _flax_key)
+        "pointnet2_cls": _pointnet2_flax_key,
+        "pointpillars": _pointpillars_flax_key}.get(keys, _flax_key)
     out = {}
     for name, t in (model.state_dict() if tensors is None
                     else tensors).items():

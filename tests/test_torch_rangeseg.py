@@ -42,12 +42,15 @@ from lisec_tpu_torch.data.collate import make_batches
 from lisec_tpu_torch.data.fixtures import make_semantic_scene
 from lisec_tpu_torch.models.common import conv_transpose_same, pad_same
 from lisec_tpu_torch.models.rangeseg import RangeSegNet
-from lisec_tpu_torch.ops import knn_refine as port_knn
 from lisec_tpu_torch.ops.range_proj import (
     range_project, range_project_batch, range_unproject)
 from lisec_tpu_torch.training.losses import lovasz_softmax
 from lisec_tpu_torch.weights import (
     convert_flax_arrays, load_weights_npz, to_flax_arrays)
+
+# ``lisec_tpu_torch.ops`` exports a function named ``knn_refine`` over its
+# module.
+port_knn = import_module("lisec_tpu_torch.ops.knn_refine")
 
 torch.set_num_threads(1)
 

@@ -616,8 +616,7 @@ def test_train_entry_point_is_deterministic():
 
 
 @pytest.mark.parametrize("override", [
-    "train.multihost=true", "train.num_devices=4",
-    "model.params.fused=false"])
+    "train.multihost=true", "train.num_devices=4"])
 def test_unported_options_raise(override):
     cfg = apply_overrides(lisec_tpu_torch.load_config(TINY),
                           ["train.num_steps=1", override])

@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from lisec_tpu_torch.models.second import mean_vfe
-from lisec_tpu_torch.ops import voxelize as pvox
 
-# ``lisec_tpu.ops`` exports a function named ``voxelize`` over its module.
+# Both packages' ``ops`` export a function named ``voxelize`` over its
+# module.
 jvox = importlib.import_module("lisec_tpu.ops.voxelize")
+pvox = importlib.import_module("lisec_tpu_torch.ops.voxelize")
 torch.set_num_threads(1)
 
 PC_RANGE = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)
