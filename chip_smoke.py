@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``lisec_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    torchrun --nproc_per_node 4 chip_smoke.py --nccl <shared dir>
+
+The second form runs only phase 14's data-parallel checks, on NCCL with
+one rank a card (four cards of one host).
 
 Phases, each of which fails the run (nonzero exit) when it goes wrong:
 
@@ -162,7 +166,23 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    source's calls of both train steps (and the plain C = 4 gather beside
    ``torch.gather``), by kernel (after the timed phases, so that no trace
    touches them);
-14. print the ``{"kernels": [...]}`` line, the card's name and power
+14. data parallelism: ``infer_dp`` at world 1 bit-equal to ``infer``;
+    then two gloo ranks sharing the card (``parallel.run_ranks``), held
+    against one process on the same batches: full-width PointPillars
+    ``infer_dp`` with the snapshot at batch 8 (keep sets exact, boxes and
+    scores within phase 3's 1e-3), two DP train steps of
+    ``configs/pointpillars_kitti.yaml`` at batch 8, 4 a rank (loss and
+    gradient norm within 5e-4, the state by ``tests/test_dp.py``'s
+    ``close_enough``; 3 paints and 2 unpaint-source launches a rank a
+    step), one DP step of ``second_tiny``, ``pointnet2_partseg_tiny``,
+    ``rangeseg_tiny`` and ``pointnet_modelnet40_tiny`` (every one of the
+    seven kernels launched under DP), ``fps_sharded`` and
+    ``ball_query_sharded`` of a 2,048-point part-seg cloud (512 picks)
+    equal to the single-device FPS kernel, its plain version and the ball
+    query; ``dp`` lines with the two ranks' step times beside one
+    process's and the gradient bucket's all-reduce (a check of the
+    program: two ranks on one card measure no speed-up);
+15. print the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 Every comparison on the card runs with TF32 off for matrix products and
@@ -4670,6 +4690,606 @@ def phase_profile_listing():
                                  f"and launched {sorted(set(labels))}")
 
 
+# -- phase 14: data parallel --------------------------------------------------
+
+# Two gloo ranks on the one card (``--nccl``: one NCCL rank a card under
+# torchrun): a check of the DP program (the global batch reductions, the
+# gradient sum, infer_dp's gather, point sharding), not of scaling.
+# Global batch 8 everywhere, a multiple of the ranks.
+DP_RANKS = 2
+DP_BATCH = 8
+DP_TIMED_STEPS = 3
+DP_TINY = (("second_tiny", SECOND_TINY_CFG),
+           ("pointnet2_partseg_tiny", PARTSEG_TINY_CFG),
+           ("rangeseg_tiny", RANGESEG_TINY_CFG),
+           ("pointnet_modelnet40_tiny", POINTNET_CLS_TINY_CFG))
+# Part-seg's first set abstraction at full width: 2,048 points, 512
+# centres, radius 0.2, 32 neighbours.
+DP_FPS = (2048, 512, 0.2, 32)
+
+# Planted faults: one of the port's global batch reductions made
+# rank-local, as plain DistributedDataParallel computes it. Each names
+# the helper of ``lisec_tpu_torch.parallel.mesh`` that the models and
+# losses call, for which ``planted_fault`` swaps in a rank-local
+# stand-in: per-rank BatchNorm statistics
+# (``global_mean``); a rank's own counts and sums scaled up to the
+# global batch (``global_sum``: a local ``num_pos``, cross-entropy
+# denominator and SECOND dense-tail BatchNorm, so that the summed shares
+# are the mean of the ranks' losses, as DDP averages them); the Lovász
+# term of a rank's own pixels (``all_gather``).
+PLANTED_FAULTS = {"local_batch_norm": "global_mean",
+                  "local_sums": "global_sum",
+                  "local_lovasz": "all_gather"}
+
+# The planted faults each DP check is run on: those that change the
+# config's step at batch 8 on 2 ranks. Not ``local_sums`` for part-seg:
+# every point of its fixture clouds is labelled, so a rank's own count
+# of them times the ranks is the global count (``tests/test_torch_dp.py``
+# unlabels some points to hold that fault).
+DP_FAULTS = {
+    "pointpillars_kitti": ("local_batch_norm", "local_sums"),
+    "second_tiny": ("local_batch_norm", "local_sums"),
+    "pointnet2_partseg_tiny": ("local_batch_norm",),
+    "rangeseg_tiny": ("local_batch_norm", "local_sums", "local_lovasz"),
+    "pointnet_modelnet40_tiny": ("local_batch_norm",),
+}
+
+
+@contextlib.contextmanager
+def planted_fault(kind):
+    """Inside the block the port's modules call the rank-local stand-in
+    for ``PLANTED_FAULTS[kind]``'s helper: a wrong DP program, which the
+    DP checks must fail."""
+    from lisec_tpu_torch.parallel import mesh
+    name = PLANTED_FAULTS[kind]
+    local = {"global_mean": lambda xs, dim: [x.mean(dim=dim) for x in xs],
+             "global_sum": lambda x: x * mesh.world_size(),
+             "all_gather": lambda x: x}[name]
+    helper = getattr(mesh, name)
+    users = [m for k, m in list(sys.modules.items())
+             if k.startswith("lisec_tpu_torch.") and m is not mesh
+             and getattr(m, name, None) is helper]
+    for m in users:
+        setattr(m, name, local)
+    try:
+        yield
+    finally:
+        for m in users:
+            setattr(m, name, helper)
+
+
+def dp_kitti_train_config(num_devices):
+    """``pointpillars_kitti.yaml`` at full width (bf16) on the ray-cast
+    fixture, batch 8, its own optimizer and schedule (AdamW, onecycle from
+    lr / 10), no augmentation, no checkpoint."""
+    return train_config(KITTI_CFG, 150000, overrides=(
+        "data.fixture=true", "data.fixture_hard=true",
+        "data.fixture_size=16", f"train.batch_size={DP_BATCH}",
+        f"train.num_devices={num_devices}"))
+
+
+def dp_tiny_config(path, num_devices):
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    return apply_overrides(load_config(path), [
+        'train.ckpt_dir=""', f"train.batch_size={DP_BATCH}",
+        f"train.num_devices={num_devices}"])
+
+
+def dp_train_batches(pipe, cfg, n):
+    from lisec_tpu_torch.data.collate import make_batches
+    batches = make_batches(pipe.make_dataset("train"), cfg.budget,
+                           cfg.train.batch_size, shuffle=True,
+                           seed=cfg.train.seed,
+                           augment_fn=pipe.augment_fn("train"))
+    return [next(batches) for _ in range(n)]
+
+
+def dp_steps(pipe, batches):
+    """``train_step`` on each batch: per step the aux values, the launches
+    and the host time to the card's end; then the state."""
+    import torch
+    out = []
+    for b in batches:
+        zero_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = pipe.train_step(b)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        out.append(({k: float(v) for k, v in aux.items()}, all_launches(),
+                    ms))
+    return out, {k: v.to("cpu", copy=True)
+                 for k, v in pipe.model.state_dict().items()}
+
+
+def dp_planted(pipe, name, batches):
+    """``dp_steps`` from the config's start again under each of its
+    planted faults (``DP_FAULTS``), by fault."""
+    from lisec_tpu_torch.weights import load_weights_npz
+    out = {}
+    for fault in DP_FAULTS[name]:
+        pipe.init_state(pipe.cfg.train.seed)
+        if name == "pointpillars_kitti":
+            load_weights_npz(pipe.model, WEIGHTS)
+        with planted_fault(fault):
+            out[fault] = dp_steps(pipe, batches)
+    return out
+
+
+def dp_rank(work):
+    """One rank of the DP group: ``infer_dp`` of the trained snapshot on
+    the 8 scenes, two DP train steps of full-width PointPillars (and
+    ``DP_TIMED_STEPS`` more, timed), the gradient bucket's all-reduce
+    timed, one DP step of each tiny config, the same steps under each
+    planted fault (``dp_planted``), and the point-sharded FPS and ball
+    query of one cloud. Returns what it measured, on the host."""
+    import torch
+    from lisec_tpu_torch.api import build_model, load_config
+    from lisec_tpu_torch.parallel import (
+        all_reduce_grads, ball_query_sharded, fps_sharded)
+    from lisec_tpu_torch.weights import load_weights_npz
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    pipe = build_model(load_config(KITTI_CFG))
+    load_weights_npz(pipe.model, WEIGHTS)
+    zero_all_launches()
+    res = pipe.infer_dp(work["scenes"])
+    torch.cuda.synchronize()
+    out["infer_dp"] = ({k: v.cpu() for k, v in res.items()}, all_launches(),
+                       pipe.mesh.world)
+    del pipe
+
+    cfg = dp_kitti_train_config(0)
+    pipe = build_model(cfg)
+    pipe.init_state(cfg.train.seed)
+    load_weights_npz(pipe.model, WEIGHTS)
+    out["kitti_train"] = dp_steps(pipe, work["kitti_batches"][:2])
+    out["kitti_timed"] = dp_steps(pipe, work["kitti_batches"][2:])[0]
+    out["kitti_faults"] = dp_planted(pipe, "pointpillars_kitti",
+                                     work["kitti_batches"][:2])
+    params = list(pipe.model.parameters())
+    grads = sum(p.grad.numel() for p in params if p.grad is not None)
+    all_reduce_grads(params, pipe.mesh)              # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        all_reduce_grads(params, pipe.mesh)
+    torch.cuda.synchronize()
+    out["bucket"] = (1e3 * (time.perf_counter() - t0) / 5, grads)
+    del pipe
+
+    for name, path in DP_TINY:
+        cfg = dp_tiny_config(path, 0)
+        pipe = build_model(cfg)
+        pipe.init_state(cfg.train.seed)
+        out[name] = dp_steps(pipe, [work["tiny_batches"][name]])
+        out[name + "_faults"] = dp_planted(pipe, name,
+                                           [work["tiny_batches"][name]])
+
+    mesh = pipe.mesh
+    n = DP_FPS[0] // mesh.world
+    rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    pts = torch.as_tensor(work["cloud"][0][rows], device="cuda")
+    msk = torch.as_tensor(work["cloud"][1][rows], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    picks = fps_sharded(pts, msk, DP_FPS[1], mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    centers = torch.as_tensor(work["cloud"][0], device="cuda")[picks.long()]
+    nbrs = ball_query_sharded(centers, pts, msk, radius=DP_FPS[2],
+                              num_neighbors=DP_FPS[3], mesh=mesh)
+    torch.cuda.synchronize()
+    out["point_sharded"] = (picks.cpu(), nbrs.cpu(),
+                            1e3 * (t1 - t0),
+                            1e3 * (time.perf_counter() - t1))
+    return out
+
+
+def dp_pooled_off(a, b, keys):
+    """The share of the elements of tensors ``keys`` of two states more
+    than 1e-3 apart."""
+    import torch
+    return float(torch.cat([
+        ((a[k].double() - b[k].double()).abs() > 1e-3).reshape(-1)
+        for k in keys]).double().mean())
+
+
+def dp_buffer_gap(a, b, keys):
+    """The largest difference of a running statistic in units of its
+    BatchNorm's own scale: a mean's over the square root of ``b``'s
+    running variance, a variance's over that variance (each plus the
+    port's BatchNorm epsilon, 1e-3), so that no statistic near 0 is
+    measured relative to itself."""
+    gaps = [0.0]
+    for k in keys:
+        stem, kind = k.rsplit(".", 1)
+        var = b[f"{stem}.var"].double() + 1e-3
+        scale = {"mean": var.sqrt(), "var": var}[kind]
+        gaps.append(float(((a[k].double() - b[k].double()).abs()
+                           / scale).max()))
+    return max(gaps)
+
+
+def dp_state_reading(got, want, params, lr, noise=None):
+    """The parameters after the steps by ``tests/test_dp.py``'s
+    ``close_enough`` (``lr`` the sum of the steps' learning rates: Adam
+    moves an element by about its rate a step, whatever its gradient's
+    size): every element within 2 lr, and below 1e-4 of all elements
+    more than 1e-3 apart, plus 4 times that share between ``noise``'s two
+    states (one process on the batch's rows in two orders: the sign flips
+    of gradients near 0). The running statistics (``dp_buffer_gap``)
+    within 1e-4, plus 4 times their gap between ``noise``'s two. Returns
+    each reading beside its limit."""
+    import torch
+    buffers = [k for k, v in want.items()
+               if k not in params and v.is_floating_point()]
+    other = dp_buffer_gap(*noise[::-1], buffers) if noise else 0.0
+    return {
+        "integers_equal": all(torch.equal(got[k], v) for k, v in want.items()
+                              if not v.is_floating_point()),
+        "params_frac_apart": (
+            dp_pooled_off(got, want, params),
+            1e-4 + (4 * dp_pooled_off(*noise, params) if noise else 0.0)),
+        "params_max_abs_diff": (
+            max(float((got[k].double() - want[k].double()).abs().max())
+                for k in params), 2 * lr + 1e-4),
+        "running_stats_gap": (dp_buffer_gap(got, want, buffers),
+                              1e-4 + 4 * other),
+        "running_stats_other_order_gap": other,
+    }
+
+
+def dp_aux_reading(got, want, noise=None):
+    """Loss and gradient norm relative to one process's, each beside its
+    limit: 5e-4, plus 4 times how far one process's moved between
+    ``noise``'s two runs (the batch's rows in two orders: the f32 spread
+    of the tiny nets)."""
+    out = {}
+    for k in ("loss", "grad_norm"):
+        rtol = 5e-4
+        if noise is not None:
+            rtol += 4 * abs(noise[1][k] - noise[0][k]) / abs(noise[0][k])
+        out[k] = (abs(got[k] - want[k]) / abs(want[k]), rtol)
+    return out
+
+
+def dp_failures(*readings):
+    """The (reading, limit) pairs of ``dp_aux_reading`` and
+    ``dp_state_reading`` outside their limits."""
+    bad = []
+    for r in readings:
+        for k, v in r.items():
+            if v is False or (isinstance(v, tuple) and not v[0] <= v[1]):
+                bad.append(f"{k} {v}")
+    return bad
+
+
+def dp_hold(name, readings, planted):
+    """Fail unless the DP run's ``readings`` are within their limits and
+    every planted fault's (``planted``: fault -> readings) is not.
+    Returns them for the ``dp`` line."""
+    bad = dp_failures(*readings)
+    if bad:
+        raise AssertionError(f"dp {name}: {'; '.join(bad)}")
+    for fault, r in planted.items():
+        if not dp_failures(*r):
+            raise AssertionError(f"dp {name}: the planted fault {fault} "
+                                 f"passes the DP check: {r}")
+    return {"readings": {k: v for r in readings for k, v in r.items()},
+            "planted_faults": {
+                f: {k: v for x in r for k, v in x.items()}
+                for f, r in planted.items()},
+            "planted_faults_caught": sorted(planted)}
+
+
+def no_dropout(pipe):
+    for m in pipe.model.modules():
+        if hasattr(m, "dropout_rate"):
+            m.dropout_rate = 0.0
+
+
+def dp_reference(cfg, pipe, world):
+    """The batches the ranks take (``work``) and one process's results on
+    them: ``pipe``'s ``infer`` of the 8 scenes, whole and in the ``world``
+    ranks' slices (the card's convolutions may pick another algorithm
+    for another batch, and bf16 rounds their sums), two full-width train steps
+    from the snapshot on their rows in two orders, each tiny config's
+    step (and its noise runs), the part-seg cloud's FPS (kernel and
+    plain) and ball query."""
+    import torch
+    import numpy as np
+    from lisec_tpu_torch.api import build_model, infer
+    from lisec_tpu_torch.data.collate import make_batches
+    from lisec_tpu_torch.ops.ball_query import ball_query
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.weights import load_weights_npz
+    scenes, _ = scene_batch(cfg, DP_BATCH)
+    ref = {"infer": {k: v.cpu() for k, v in infer(pipe, scenes).items()}}
+    n = DP_BATCH // world
+    rows = [infer(pipe, {k: v[r * n:(r + 1) * n] for k, v in scenes.items()})
+            for r in range(world)]
+    ref["infer_rows"] = {k: torch.cat([o[k] for o in rows]).cpu()
+                         for k in rows[0]}
+    tcfg = dp_kitti_train_config(0)
+    single = build_model(tcfg)
+    single.init_state(tcfg.train.seed)
+    load_weights_npz(single.model, WEIGHTS)
+    kitti_batches = dp_train_batches(single, tcfg, 2 + DP_TIMED_STEPS)
+    ref["lrs"] = [single.schedule(s) for s in range(2)]
+    ref["kitti_params"] = {n for n, _ in single.model.named_parameters()}
+    perm = np.random.default_rng(0).permutation(DP_BATCH)
+    with torch.enable_grad():
+        ref["kitti"] = dp_steps(single, kitti_batches[:2])
+        ref["kitti_timed"] = dp_steps(single, kitti_batches[2:])[0]
+        # The same two steps on the batches' rows in another order: how
+        # far one process's own f32 sums (bf16 products) move.
+        single.init_state(tcfg.train.seed)
+        load_weights_npz(single.model, WEIGHTS)
+        ref["kitti_other"] = dp_steps(
+            single, [{k: v[perm] for k, v in b.items()}
+                     for b in kitti_batches[:2]])
+    del single
+    tiny_batches = {}
+    for name, path in DP_TINY:
+        c = dp_tiny_config(path, 0)
+        one = build_model(c)
+        one.init_state(c.train.seed)
+        b = dp_train_batches(one, c, 1)[0]
+        tiny_batches[name] = b
+        with torch.enable_grad():
+            steps, state = dp_steps(one, [b])
+            # The spread of one process's f32 sums: the step on the rows
+            # in two orders, dropout the identity (another order would
+            # move the masks).
+            no_dropout(one)
+            noise = []
+            for rows in (b, {k: v[perm] for k, v in b.items()}):
+                one.init_state(c.train.seed)
+                noise.append(dp_steps(one, [rows]))
+        ref[name] = (steps, state, (noise[0][0][0][0], noise[1][0][0][0]),
+                     (noise[0][1], noise[1][1]), one.schedule(0),
+                     {n for n, _ in one.model.named_parameters()})
+    seg = build_model(dp_tiny_config(PARTSEG_CFG, 0))
+    cloud = next(make_batches(seg.make_dataset("test"), seg.cfg.budget, 1,
+                              shuffle=False))
+    del seg
+    cloud = (cloud["points"][0], cloud["point_mask"][0])
+    if len(cloud[0]) != DP_FPS[0]:
+        raise AssertionError(f"part-seg cloud of {len(cloud[0])} points")
+    pts = torch.as_tensor(cloud[0], device="cuda")
+    msk = torch.as_tensor(cloud[1], device="cuda")
+    kernel = fk.fps(pts[None].contiguous(), msk[None].bool().contiguous(),
+                    DP_FPS[1])[0]
+    ref["fps"] = (kernel.cpu(), fk.fps_reference(
+        pts[None], msk[None].bool(), DP_FPS[1])[0].cpu())
+    ref["ball_query"] = ball_query(
+        pts[kernel.long()], pts, msk, radius=DP_FPS[2],
+        num_neighbors=DP_FPS[3]).cpu()
+    torch.cuda.empty_cache()
+    work = {"scenes": scenes, "kitti_batches": kitti_batches,
+            "tiny_batches": tiny_batches, "cloud": cloud}
+    return work, ref
+
+
+def dp_compare(ranks, ref, backend, whole_batch=True):
+    """The ranks' results (``dp_rank``'s, by rank) against one
+    process's; prints a ``dp`` line a check and returns rank 0's launches
+    by kernel over the DP runs. ``infer_dp`` is held to one process's
+    ``infer`` of each rank's rows and, with ``whole_batch``, of the whole
+    batch at once."""
+    import torch
+    world = len(ranks)
+    one = ref["infer"]
+    for r, rank in enumerate(ranks):
+        got, launches, w = rank["infer_dp"]
+        if w != world or launches != {**NO_LAUNCHES,
+                                      "pillar_canvas_fused": 1}:
+            raise AssertionError(f"dp infer_dp rank {r}: world {w}, "
+                                 f"launches {launches}")
+        same_outputs(got, ref["infer_rows"], f"dp infer_dp rank {r}", 1e-3)
+        if whole_batch:
+            same_outputs(got, one, f"dp infer_dp rank {r}, whole batch",
+                         1e-3)
+    emit("dp", check="infer_dp", backend=backend,
+         config="pointpillars_kitti", ranks=world, batch=DP_BATCH,
+         per_rank=DP_BATCH // world,
+         launches_per_rank={"pillar_canvas_fused": 1},
+         max_abs_err={k: max(float((rk["infer_dp"][0][k].float()
+                                    - ref["infer_rows"][k].float())
+                                   .abs().max())
+                             for rk in ranks) for k in ("boxes", "scores")},
+         max_abs_err_whole_batch={
+             k: max(float((rk["infer_dp"][0][k].float()
+                           - one[k].float()).abs().max())
+                    for rk in ranks) for k in ("boxes", "scores")},
+         same_keep_sets_whole_batch=all(
+             torch.equal(rk["infer_dp"][0][k], one[k])
+             for rk in ranks for k in ("valid", "labels")),
+         kept_per_cloud=one["valid"].sum(1).tolist())
+
+    # Two DP train steps of full-width PointPillars.
+    per_step = {**NO_LAUNCHES, **POINTPILLARS_LAUNCHES_PER_TRAIN_STEP}
+    steps, state = ranks[0]["kitti_train"]
+    (want_steps, want_state), other = ref["kitti"], ref["kitti_other"]
+    def kitti_readings(run):
+        aux = {}
+        for i, (s, w, o) in enumerate(zip(run[0], want_steps, other[0])):
+            aux.update({f"step_{i + 1}_{k}": v for k, v in
+                        dp_aux_reading(s[0], w[0], (w[0], o[0])).items()})
+        return aux, dp_state_reading(run[1], want_state, ref["kitti_params"],
+                                     sum(ref["lrs"]), (want_state, other[1]))
+    for r, rank in enumerate(ranks):
+        for s in rank["kitti_train"][0] + rank["kitti_timed"]:
+            if s[1] != per_step:
+                raise AssertionError(f"dp rank {r} train step launched "
+                                     f"{s[1]}, expected {per_step}")
+        if any(not torch.equal(v, state[k])
+               for k, v in rank["kitti_train"][1].items()):
+            raise AssertionError(f"dp rank {r}: state differs from rank 0")
+    held = dp_hold("pointpillars_kitti", kitti_readings((steps, state)), {
+        f: kitti_readings(run)
+        for f, run in ranks[0]["kitti_faults"].items()})
+    bucket_ms, grads = ranks[0]["bucket"]
+    emit("dp", check="train_steps", backend=backend,
+         config="pointpillars_kitti", ranks=world, batch=DP_BATCH, steps=2,
+         launches_per_rank_step={k: v for k, v in per_step.items() if v},
+         loss=[s[0]["loss"] for s in steps],
+         one_process_loss=[w[0]["loss"] for w in want_steps],
+         other_order_rel_diff=[
+             {k: abs(o[0][k] - w[0][k]) / abs(w[0][k])
+              for k in ("loss", "grad_norm")}
+             for o, w in zip(other[0], want_steps)],
+         lr=ref["lrs"], **held,
+         note="a check of the DP program, not a scaling figure"
+         + (": the ranks share one card" if backend == "gloo" else ""),
+         step_ms_ranks=[max(rk["kitti_timed"][i][2] for rk in ranks)
+                        for i in range(DP_TIMED_STEPS)],
+         step_ms_one_process=[w[2] for w in ref["kitti_timed"]],
+         grad_bucket_all_reduce_ms=bucket_ms,
+         grad_bucket_bytes=4 * grads)
+
+    # One DP step of each tiny config.
+    under_dp = dict(ranks[0]["infer_dp"][1])
+    for s in steps:
+        under_dp = {k: under_dp[k] + s[1][k] for k in under_dp}
+    for name, _ in DP_TINY:
+        (w_steps, w_state, noise, noise_states, lr, params) = ref[name]
+        (g_steps, g_state) = ranks[0][name]
+        for r, rank in enumerate(ranks):
+            if rank[name][0][0][1] != w_steps[0][1]:
+                raise AssertionError(
+                    f"dp {name} rank {r} launched {rank[name][0][0][1]}, "
+                    f"one process {w_steps[0][1]}")
+
+        def readings(run):
+            return (dp_aux_reading(run[0][0][0], w_steps[0][0], noise),
+                    dp_state_reading(run[1], w_state, params, lr,
+                                     noise_states))
+        held = dp_hold(name, readings(ranks[0][name]), {
+            f: readings(run) for f, run in ranks[0][name + "_faults"].items()})
+        under_dp = {k: under_dp[k] + g_steps[0][1][k] for k in under_dp}
+        emit("dp", check="tiny_train_step", backend=backend, config=name,
+             ranks=world, batch=DP_BATCH, launches_per_rank_step={
+                 k: v for k, v in g_steps[0][1].items() if v},
+             other_order_rel_diff={
+                 k: abs(noise[1][k] - noise[0][k]) / abs(noise[0][k])
+                 for k in ("loss", "grad_norm")}, **held)
+    missing = [k for k, v in under_dp.items() if not v]
+    if missing:
+        raise AssertionError(f"dp: no launch of {missing} under DP")
+
+    # Point-axis sharding against the single-device ops.
+    kernel, plain = ref["fps"]
+    for r, rank in enumerate(ranks):
+        picks, got_nbrs = rank["point_sharded"][:2]
+        if not (torch.equal(picks, kernel) and torch.equal(picks, plain)):
+            raise AssertionError(f"dp fps_sharded rank {r} differs from "
+                                 "the single-device FPS")
+        if not torch.equal(got_nbrs, ref["ball_query"]):
+            raise AssertionError(f"dp ball_query_sharded rank {r} differs "
+                                 "from the single-device ball query")
+    emit("dp", check="point_sharded", backend=backend, ranks=world,
+         points=DP_FPS[0], samples=DP_FPS[1], radius=DP_FPS[2],
+         neighbours=DP_FPS[3], fps_equal_kernel_and_plain=True,
+         ball_query_equal=True, distinct_picks=len(set(kernel.tolist())),
+         fps_sharded_ms=max(rk["point_sharded"][2] for rk in ranks),
+         ball_query_sharded_ms=max(rk["point_sharded"][3] for rk in ranks))
+    return under_dp
+
+
+def phase_data_parallel(pipe, cfg):
+    """``infer_dp`` at world 1 bit-equal to ``infer`` (one
+    ``pillar_canvas_fused`` launch); then two gloo ranks sharing the card
+    (``parallel.run_ranks``) against one process on the same batches
+    (``dp_compare``): full-width PointPillars ``infer_dp`` (keep sets and
+    valid exact, boxes and scores within phase 3's tolerance) and two DP
+    train steps (loss and gradient norm within 5e-4, the parameters by
+    ``close_enough``, each beside how far one process moves on the rows
+    in another order), each rank launching per step what one process
+    does; one DP step of each tiny config (the seven kernels between
+    them) held the same way; the point-sharded FPS and ball query of a
+    full-width part-seg cloud equal to the single-device FPS (kernel and
+    plain) and ball query. The step times of the two ranks stand beside
+    one process's: a check of the program, not a scaling figure."""
+    import torch
+    from lisec_tpu_torch.parallel import run_ranks
+    t_phase = time.perf_counter()
+    scenes, _ = scene_batch(cfg, DP_BATCH)
+    zero_all_launches()
+    one = pipe.infer(scenes)
+    dp1 = pipe.infer_dp(scenes)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != {**NO_LAUNCHES, "pillar_canvas_fused": 2}:
+        raise AssertionError(f"infer + infer_dp at world 1 launched "
+                             f"{launches}")
+    if pipe.mesh.world != 1 or any(not torch.equal(one[k], dp1[k])
+                                   for k in one):
+        raise AssertionError("infer_dp at world 1 differs from infer")
+    emit("dp", check="infer_dp_world_1", config="pointpillars_kitti",
+         batch=DP_BATCH, bit_equal=True,
+         launches={"pillar_canvas_fused": 1})
+    work, ref = dp_reference(cfg, pipe, DP_RANKS)
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_rank, DP_RANKS, work)
+    spawn_s = time.perf_counter() - t0
+    under_dp = dp_compare(ranks, ref, "gloo")
+    emit("dp", check="phase", launches_under_dp_rank_0=under_dp,
+         spawn_and_ranks_s=spawn_s, phase_s=time.perf_counter() - t_phase)
+    return under_dp
+
+
+def nccl_main(out_dir) -> int:
+    """The data-parallel checks of phase 14 on NCCL, one rank a card:
+
+        torchrun --nproc_per_node 4 chip_smoke.py --nccl <shared dir>
+
+    Every rank takes one process's references on its own card first
+    (no group is up yet), then the ranks run ``dp_rank``, save what they
+    measured to ``<shared dir>``, and rank 0 holds it against its
+    references (``dp_compare``)."""
+    import torch
+    import torch.distributed as dist
+    from lisec_tpu_torch.api import build_model, load_config
+    from lisec_tpu_torch.parallel import initialize_distributed
+    from lisec_tpu_torch.weights import load_weights_npz
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    global CARD
+    CARD = card()
+    if rank == 0:
+        phase_build()
+    cfg = load_config(KITTI_CFG)
+    pipe = build_model(cfg)
+    load_weights_npz(pipe.model, WEIGHTS)
+    work, ref = dp_reference(cfg, pipe, int(os.environ["WORLD_SIZE"]))
+    del pipe
+    initialize_distributed(device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}")
+    with torch.enable_grad():
+        out = dp_rank(work)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    if rank == 0:
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(dist.get_world_size())]
+        under_dp = dp_compare(ranks, ref, "nccl", whole_batch=False)
+        emit("dp", check="nccl", ranks=len(ranks),
+             cards=torch.cuda.device_count(),
+             launches_under_dp_rank_0=under_dp)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4764,6 +5384,7 @@ def main() -> int:
     phase_bench()
     phase_profile_listing()
     phase_device_times()
+    under_dp = phase_data_parallel(pipe, cfg)
 
     def summed(per_call):
         library = [c["library_ms"] for c in per_call]
@@ -4888,6 +5509,8 @@ def main() -> int:
             ("cls_train_step" if info is gr.SCATTER_INFO
              else "cls_predict"): summed(cls),
             "cls_calls": cls})
+    for k in kernels:
+        k["launches_under_dp_rank_0"] = under_dp[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {
@@ -4899,4 +5522,6 @@ def main() -> int:
 CARD = ""
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--nccl"]:
+        sys.exit(nccl_main(sys.argv[2]))
     sys.exit(main())

@@ -33,9 +33,12 @@ and NaN checks; ``python -m lisec_tpu_torch.cli`` has ``train``,
 ``eval``, ``infer`` and ``bench`` (``bench_lib.run_benchmark``, on the
 card). Serving also takes the int16 wire (``data/wire.py``,
 ``Pipeline.infer_packed``), and ``model.params.fused: false`` builds the
-voxel-buffer PointPillars. Multi-host and data-parallel training are
-not ported yet and raise ``NotImplementedError`` when a config asks for
-them. Public API::
+voxel-buffer PointPillars. Data parallelism (``parallel/``): ``train``
+with ``train.num_devices`` W > 1 runs one process a rank (``torchrun``;
+NCCL on the card, gloo on the CPU) and computes what one device computes
+on the global batch; ``Pipeline.infer_dp`` predicts a global batch's
+rows on their ranks; ``train.multihost`` feeds each process its own
+shard of the examples. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")
     pipeline = lisec_tpu_torch.build_model(cfg)          # device="cuda"

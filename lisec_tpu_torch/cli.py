@@ -5,10 +5,17 @@
     python -m lisec_tpu_torch.cli infer <config> --cloud path [--ckpt dir]
     python -m lisec_tpu_torch.cli bench <config> [key=value ...]
 
-Every verb runs on the card. ``infer`` restores the latest checkpoint of
-``--ckpt`` (else of ``train.ckpt_dir``) before it predicts and prints
-the first cloud's outputs as JSON. ``bench`` prints one JSON line of
-``bench_lib.run_benchmark``; it measures on the card only.
+Every verb runs on the card. ``train`` also runs data-parallel under
+``torchrun`` (one process a card, NCCL; gloo for ``device="cpu"``),
+with ``train.num_devices`` 0 or the number of ranks:
+
+    torchrun --nproc_per_node 4 -m lisec_tpu_torch.cli train <config>
+
+``infer``, ``eval`` and ``bench`` run on one process. ``infer`` restores
+the latest checkpoint of ``--ckpt`` (else of ``train.ckpt_dir``) before
+it predicts and prints the first cloud's outputs as JSON. ``bench``
+prints one JSON line of ``bench_lib.run_benchmark``; it measures on the
+card only.
 """
 
 from __future__ import annotations
@@ -42,8 +49,15 @@ def main(argv=None, device="cuda"):
     cfg = apply_overrides(load_config(args.config), list(args.overrides))
 
     if args.command == "train":
+        import torch.distributed as dist
         from lisec_tpu_torch.api import train
-        train(cfg, device=device)
+        from lisec_tpu_torch.parallel.mesh import initialize_distributed
+        started = initialize_distributed(device=device)   # torchrun's
+        try:
+            train(cfg, device=device)
+        finally:
+            if started:
+                dist.destroy_process_group()
     elif args.command == "eval":
         from lisec_tpu_torch.api import evaluate
         evaluate(cfg, device=device)

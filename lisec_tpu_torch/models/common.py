@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lisec_tpu_torch.parallel.mesh import current_mesh, global_mean
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
 
@@ -64,14 +66,16 @@ def batch_norm(xf: torch.Tensor, layer: nn.Module, channel_dim: int, *,
     ``eval()`` mode with the running statistics; in ``train()`` mode with
     the batch statistics, the variance as E[x^2] - E[x]^2 clipped at 0,
     and that biased variance going into the running statistics
-    (``torch.nn.BatchNorm2d`` stores the unbiased one). Returns ``xf``'s
-    type; the caller casts."""
+    (``torch.nn.BatchNorm2d`` stores the unbiased one). Under a data
+    mesh the batch statistics are those of the global batch
+    (``global_mean``), so the running statistics agree on every rank.
+    Returns ``xf``'s type; the caller casts."""
     dims = [d for d in range(xf.dim()) if d != channel_dim % xf.dim()]
     shape = [1] * xf.dim()
     shape[channel_dim] = -1
     if layer.training:
-        mean = xf.mean(dim=dims)
-        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0)
+        mean, ex2 = global_mean([xf, xf * xf], dims)
+        var = (ex2 - mean * mean).clamp_min(0)
         with torch.no_grad():
             layer.mean.mul_(momentum).add_((1.0 - momentum) * mean)
             layer.var.mul_(momentum).add_((1.0 - momentum) * var)
@@ -102,7 +106,7 @@ class ConvBNRelu(nn.Module):
     """2D conv (or transposed conv) + BatchNorm + ReLU, ``SAME`` padded,
     with a square kernel and a stride that is one int or an (H, W) pair.
 
-    BatchNorm is :func:`batch_norm`.
+    BatchNorm is :func:`batch_norm`, in f32 (f64 for an f64 model).
 
     The conv weight is (out, in, k, k); the transposed conv's is
     (in, out, k, k), already spatially flipped, so that
@@ -131,7 +135,8 @@ class ConvBNRelu(nn.Module):
         else:
             x = F.conv2d(pad_same(x, self.kernel, self.stride), w,
                          stride=self.stride)
-        return torch.relu(batch_norm(x.float(), self, 1).to(self.dtype))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        return torch.relu(batch_norm(xf, self, 1).to(self.dtype))
 
     def weight_std(self) -> float:
         """flax's lecun-normal: variance 1 / fan_in."""
@@ -222,12 +227,17 @@ def dropout(h: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's ``Dropout(rate)`` in training: keep with probability
     1 - rate, scale by 1 / (1 - rate), the mask drawn from ``generator``
-    on ``h``'s device (torch cannot draw flax's bits)."""
+    on ``h``'s device (torch cannot draw flax's bits). Under a data mesh
+    the mask is drawn for the global batch and this rank keeps its rows:
+    the masks of the single-device step, and the generator stays in step
+    on every rank."""
     if rate == 0.0:
         return h
     keep_prob = 1.0 - rate
-    keep = torch.rand(h.shape, generator=generator,
-                      device=h.device) < keep_prob
+    mesh = current_mesh()
+    keep = torch.rand((h.shape[0] * mesh.world, *h.shape[1:]),
+                      generator=generator, device=h.device) < keep_prob
+    keep = mesh.rows(keep)
     return torch.where(keep, h / keep_prob, 0.0)
 
 

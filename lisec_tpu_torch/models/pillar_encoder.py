@@ -33,6 +33,7 @@ from lisec_tpu_torch.ops.cuda.encoder_kernel import (
 from lisec_tpu_torch.ops.cuda.segment_paint import segment_paint
 from lisec_tpu_torch.ops.cuda.segment_unpaint import pillar_decorate
 from lisec_tpu_torch.ops.scatter import segment_max_sorted
+from lisec_tpu_torch.parallel.mesh import global_mean, world_size
 
 
 class FusedPillarEncoder(nn.Module):
@@ -109,9 +110,14 @@ class FusedPillarEncoder(nn.Module):
         h = feats.to(self.dtype) @ self.kernel.to(self.dtype)  # (B, N, C)
         h32 = h.float()
         # Batch statistics over all B * N rows, the zero rows of masked
-        # and out-of-range points included; the biased variance.
-        mu = h32.mean(dim=(0, 1))
-        var = h32.var(dim=(0, 1), unbiased=False)
+        # and out-of-range points included; the biased variance. Under a
+        # data mesh over the global batch's rows, in two passes as
+        # ``var`` takes them.
+        [mu] = global_mean([h32], (0, 1))
+        if world_size() == 1:
+            var = h32.var(dim=(0, 1), unbiased=False)
+        else:
+            [var] = global_mean([(h32 - mu).square()], (0, 1))
         with torch.no_grad():
             self.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mu)
             self.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)

@@ -17,6 +17,7 @@ from torch import nn
 
 from lisec_tpu_torch.models.common import (
     Dense, MLPHead, SharedMLP, masked_max, reset_parameters)
+from lisec_tpu_torch.parallel.mesh import mean_share
 
 
 class _ZeroInitDense(Dense):
@@ -90,11 +91,12 @@ class PointNetCls(nn.Module):
 
 
 def orthogonality_loss(transform: Optional[torch.Tensor]) -> torch.Tensor:
-    """|| I - A A^T ||_F^2 averaged over the batch; 0 without a
+    """|| I - A A^T ||_F^2 averaged over the batch (under a data mesh,
+    this rank's share of the global batch's mean); 0 without a
     transform."""
     if transform is None:
         return torch.tensor(0.0)
     k = transform.shape[-1]
     eye = torch.eye(k, dtype=transform.dtype, device=transform.device)
     diff = eye - torch.matmul(transform, transform.transpose(-1, -2))
-    return (diff ** 2).sum(dim=(1, 2)).mean()
+    return mean_share((diff ** 2).sum(dim=(1, 2)))

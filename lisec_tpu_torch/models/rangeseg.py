@@ -86,7 +86,9 @@ class RangeSegNet(nn.Module):
             x = self.blocks[i](down(x))
         for i, (up, skip) in enumerate(zip(self.up, reversed(skips))):
             x = self.blocks[levels + i](up(x) + skip)
-        return self.head(x).float().permute(0, 2, 3, 1)
+        x = self.head(x)
+        return x.to(torch.promote_types(x.dtype, torch.float32)
+                    ).permute(0, 2, 3, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_parameters(self, generator)

@@ -32,6 +32,7 @@ from lisec_tpu_torch.ops.scatter import segment_sum_dense
 from lisec_tpu_torch.ops.sparse_conv import (
     SparseConvSpec, build_footprint_coords, build_output_coords,
     build_scatter_rulebook, sparse_conv3d_spread, submanifold_sources)
+from lisec_tpu_torch.parallel.mesh import global_sum
 
 
 NUM_OFFSETS = 27            # every sparse conv here has 3 x 3 x 3 taps
@@ -110,11 +111,12 @@ class DenseConv3D(nn.Module):
                      stride=self.stride, padding=1)
         hf = h.float()
         if self.training:
+            # Under a data mesh the global batch's active cells.
             m = active.float()
-            cnt = m.sum().clamp_min(1.0)
+            cnt = global_sum(m.sum()).clamp_min(1.0)
             hm = hf * m
-            mu = hm.sum(dim=(0, 2, 3, 4)) / cnt
-            var = ((hm * hm).sum(dim=(0, 2, 3, 4)) / cnt
+            mu = global_sum(hm.sum(dim=(0, 2, 3, 4))) / cnt
+            var = (global_sum((hm * hm).sum(dim=(0, 2, 3, 4))) / cnt
                    - mu * mu).clamp_min(0.0)
             with torch.no_grad():
                 self.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mu)

@@ -19,6 +19,16 @@ def _sq_norm(x: torch.Tensor) -> torch.Tensor:
         + x[..., 2] * x[..., 2]
 
 
+def in_radius(centers: torch.Tensor, points: torch.Tensor,
+              point_mask: torch.Tensor, radius: float) -> torch.Tensor:
+    """(..., M, N) bool: point n is valid and its squared distance to
+    centre m is below ``radius**2``."""
+    cross = centers @ points.transpose(-1, -2)                # (..., M, N)
+    d2 = (_sq_norm(centers)[..., :, None] - 2.0 * cross
+          + _sq_norm(points)[..., None, :])
+    return (d2 < radius * radius) & point_mask.bool()[..., None, :]
+
+
 def ball_query(centers: torch.Tensor, points: torch.Tensor,
                point_mask: torch.Tensor, *, radius: float,
                num_neighbors: int) -> torch.Tensor:
@@ -26,10 +36,7 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor,
     (..., M, K) int32 indices of up to K points with squared distance
     below ``radius**2``; a centre with none returns index 0."""
     n = points.shape[-2]
-    cross = centers @ points.transpose(-1, -2)                # (..., M, N)
-    d2 = (_sq_norm(centers)[..., :, None] - 2.0 * cross
-          + _sq_norm(points)[..., None, :])
-    inside = (d2 < radius * radius) & point_mask.bool()[..., None, :]
+    inside = in_radius(centers, points, point_mask, radius)
     idx = torch.arange(n, dtype=torch.int32, device=points.device)
     key = torch.where(inside, idx, n)
     knn = torch.topk(key, num_neighbors, dim=-1, largest=False,

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict
@@ -53,22 +54,30 @@ def build(name: str) -> Dict[str, object]:
     """Compile ``csrc/<name>.cu`` unless it is built already.
 
     Returns ``{"seconds": s, "log": nvcc output}`` (0 and "" when the
-    library was already built). Raises if nvcc fails.
+    library was already built). Raises if nvcc fails. Each call compiles
+    to a temporary file of its own and renames it into place, so ranks
+    that build at once cannot interleave their writes.
     """
     out = library_path(name)
     if out.exists():
         return {"seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(out.name + ".tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    os.replace(tmp, out)
+    fd, tmp = tempfile.mkstemp(prefix=f"{out.name}.{os.getpid()}.",
+                               suffix=".tmp", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               str(CSRC_DIR / f"{name}.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return {"seconds": seconds, "log": log}
 
 

@@ -6,8 +6,14 @@ without a card it raises instead of running on the CPU, where only the
 caller's ``device="cpu"`` runs the plain PyTorch versions of the kernels.
 The model and the optimizer hold the training state (parameters,
 running statistics, moments, step count), so there is no separate state
-object; ``state_dict`` gathers it for a checkpoint. The device mesh and
-data-parallel training are not ported yet.
+object; ``state_dict`` gathers it for a checkpoint.
+
+``self.mesh`` is the data mesh (``parallel.make_mesh`` over
+``train.num_devices``): on W ranks ``train_step`` takes the global batch,
+each rank runs its rows, the batch reductions are global and the
+gradients are summed over the ranks, as the JAX package's train step
+jitted over its mesh computes; ``infer_dp`` predicts the global batch's
+rows on their ranks. At world 1 both are the single-device program.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ import torch
 from lisec_tpu_torch.config import Config
 from lisec_tpu_torch.data.collate import make_batches
 from lisec_tpu_torch.data.wire import unpack_points_q16
+from lisec_tpu_torch.parallel.mesh import (
+    all_gather, all_reduce_grads, global_metrics, make_mesh, shard_batch,
+    use_mesh)
 from lisec_tpu_torch.training.optim import make_optimizer
 
 
@@ -56,6 +65,8 @@ class Pipeline:
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(cfg.train.num_devices, self.device,
+                              process_local=bool(cfg.train.multihost))
         self.optimizer = None
         self.schedule = None
 
@@ -89,6 +100,11 @@ class Pipeline:
 
     def device_batch(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch on the device (all of it at
+        world 1; all of a process-local batch)."""
+        return shard_batch(batch, self.mesh)
+
+    def _whole_batch(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
@@ -126,29 +142,53 @@ class Pipeline:
         """Train steps taken since ``init_state``."""
         return self.optimizer.count
 
+    def forward_backward(self, batch: Dict[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+        """The train-mode loss of a (global) batch and its gradients,
+        added to the parameters' ``.grad``: on W ranks each rank's share
+        of the loss is differentiated and the gradients are summed over
+        the ranks, so every rank holds the global batch's. Returns the
+        loss's aux metrics plus ``loss``, global values, detached."""
+        self.model.train()
+        with use_mesh(self.mesh):
+            loss, aux = self.loss(self.device_batch(batch))
+            loss.backward()
+            all_reduce_grads(list(self.model.parameters()), self.mesh)
+            aux = {k: v.detach() for k, v in aux.items()}
+            aux["loss"] = loss.detach()
+            return global_metrics(aux)
+
     def train_step(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
         """Forward, backward and one optimizer update on a batch (numpy
-        arrays or tensors). Returns the loss's aux metrics plus ``loss``
+        arrays or tensors; on W ranks the global batch, of which each
+        rank runs its rows). Returns the loss's aux metrics plus ``loss``
         and ``grad_norm`` (the global norm before clipping), as 0-dim
         tensors on the device."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before train_step()")
-        self.model.train()
         self.optimizer.zero_grad()
-        loss, aux = self.loss(self.device_batch(batch))
-        loss.backward()
-        grad_norm = self.optimizer.step()
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["loss"] = loss.detach()
-        aux["grad_norm"] = grad_norm
+        aux = self.forward_backward(batch)
+        aux["grad_norm"] = self.optimizer.step()
         return aux
 
     @torch.no_grad()
     def infer(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Batch (numpy arrays or tensors) in, outputs on the device out."""
         self.model.eval()
-        return self.predict(self.device_batch(batch))
+        return self.predict(self._whole_batch(batch))
+
+    @torch.no_grad()
+    def infer_dp(self, batch: Dict[str, np.ndarray]
+                 ) -> Dict[str, torch.Tensor]:
+        """Data-parallel ``infer`` of a global batch: each rank predicts
+        its rows with no collective in the forward pass, and the outputs
+        are gathered in rank order into the global batch's on every
+        rank. ``infer`` at world 1."""
+        self.model.eval()
+        out = self.predict(self.device_batch(batch))
+        with use_mesh(self.mesh):
+            return {k: all_gather(v) for k, v in out.items()}
 
     @torch.no_grad()
     def infer_packed(self, packed: Dict[str, np.ndarray]
@@ -159,7 +199,7 @@ class Pipeline:
         dequantized there. Pack on the host with
         ``data.wire.pack_points_q16``."""
         self.model.eval()
-        return self.predict(unpack_points_q16(self.device_batch(packed)))
+        return self.predict(unpack_points_q16(self._whole_batch(packed)))
 
     def eval_outputs(self, split: str, max_batches: int = 0
                      ) -> Iterator[Tuple[Dict[str, np.ndarray],

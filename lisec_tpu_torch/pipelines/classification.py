@@ -17,6 +17,7 @@ from lisec_tpu_torch.data.augment import augment_cloud
 from lisec_tpu_torch.data.modelnet40 import ModelNet40
 from lisec_tpu_torch.models.pointnet import PointNetCls, orthogonality_loss
 from lisec_tpu_torch.models.pointnet2 import PointNet2Cls
+from lisec_tpu_torch.parallel.mesh import mean_share
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.losses import cross_entropy
@@ -71,7 +72,7 @@ class PointNetClsPipeline(Pipeline):
         ft = out["feature_transform"]
         reg = (orthogonality_loss(ft) if ft is not None
                else logits.new_zeros(()))
-        acc = (logits.argmax(-1) == labels).float().mean()
+        acc = mean_share((logits.argmax(-1) == labels).float())
         return ce + self.reg_weight * reg, {"ce": ce, "reg": reg,
                                             "acc": acc}
 

@@ -31,6 +31,7 @@ from lisec_tpu_torch.models.second import SECONDNet
 from lisec_tpu_torch.ops.boxes import decode_boxes
 from lisec_tpu_torch.ops.nms import rotated_nms, top_k
 from lisec_tpu_torch.ops.voxelize import voxelize_batch, voxelize_mean_batch
+from lisec_tpu_torch.parallel.mesh import global_sum, world_size
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.assigner import (
@@ -183,10 +184,12 @@ class PointPillarsPipeline(Pipeline):
         return self.loss_terms(preds, self.assign(batch))
 
     def loss_terms(self, preds, assign):
-        """(total, aux) from the head's predictions and the targets."""
+        """(total, aux) from the head's predictions and the targets;
+        under a data mesh this rank's shares, over the global batch's
+        positives."""
         pos = assign.positive                              # (B, A)
         num_pos_sum = pos.sum()
-        num_pos = num_pos_sum.float().clamp_min(1.0)       # whole batch
+        num_pos = global_sum(num_pos_sum).float().clamp_min(1.0)  # whole batch
 
         # Classification: focal loss, one-vs-all; bg = all-zero targets,
         # ignored anchors (-1) masked out.
@@ -218,7 +221,7 @@ class PointPillarsPipeline(Pipeline):
             "cls_loss": cls_loss,
             "loc_loss": loc_loss,
             "dir_loss": dir_ce,
-            "num_pos": num_pos_sum / pos.shape[0],
+            "num_pos": num_pos_sum / (pos.shape[0] * world_size()),
         }
         return total, aux
 

@@ -16,6 +16,7 @@ from lisec_tpu_torch.config import Config
 from lisec_tpu_torch.data.augment import augment_cloud
 from lisec_tpu_torch.data.shapenetpart import ShapeNetPart
 from lisec_tpu_torch.models.pointnet2 import PointNet2PartSeg
+from lisec_tpu_torch.parallel.mesh import global_sum
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.losses import cross_entropy
@@ -71,7 +72,7 @@ class PointNet2PartSegPipeline(Pipeline):
         ce = cross_entropy(logits, labels, mask=batch["point_mask"])
         valid = batch["point_mask"].bool() & (labels >= 0)
         acc = ((logits.argmax(-1) == labels) & valid).sum() \
-            / valid.sum().clamp_min(1)
+            / global_sum(valid.sum()).clamp_min(1)
         return ce, {"acc": acc}
 
     def predict(self, batch: Dict[str, torch.Tensor]

@@ -19,6 +19,7 @@ from lisec_tpu_torch.data.semantickitti import SemanticKitti
 from lisec_tpu_torch.models.rangeseg import RangeSegNet
 from lisec_tpu_torch.ops.knn_refine import knn_refine_batch
 from lisec_tpu_torch.ops.range_proj import RangeImage, range_project_batch
+from lisec_tpu_torch.parallel.mesh import global_sum
 from lisec_tpu_torch.pipelines.base import Pipeline
 from lisec_tpu_torch.registry import register_model, register_pipeline
 from lisec_tpu_torch.training.losses import cross_entropy, lovasz_softmax
@@ -84,7 +85,7 @@ class RangeSegPipeline(Pipeline):
         lov = lovasz_softmax(torch.softmax(logits, -1), labels,
                              num_classes=self.num_classes, mask=pix_mask)
         acc = ((logits.argmax(-1) == labels) & pix_mask).sum() \
-            / pix_mask.sum().clamp_min(1)
+            / global_sum(pix_mask.sum()).clamp_min(1)
         return ce + self.lovasz_weight * lov, {"ce": ce, "lovasz": lov,
                                                "acc": acc}
 

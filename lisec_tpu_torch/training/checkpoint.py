@@ -14,6 +14,10 @@ save_interval_steps=every)``): a step is saved when it is past the
 latest saved one and is a multiple of ``every``, or when the directory
 holds no checkpoint yet; ``force`` saves regardless; the newest ``keep``
 steps are kept.
+
+On W ranks of a data mesh the directory must be one every rank sees:
+rank 0 decides whether a step is saved and writes the file, every rank
+waits for it at a barrier, and every rank restores.
 """
 
 from __future__ import annotations
@@ -56,9 +60,17 @@ class CheckpointManager:
 
     def save(self, step: int, pipeline, force: bool = False) -> bool:
         """Write ``pipeline``'s training state as ``step``; returns
-        whether it was written."""
-        if not force and not self.should_save(step):
+        whether it was written (on every rank of a data mesh, which all
+        call this together)."""
+        mesh = pipeline.mesh
+        if not mesh.decide(force or self.should_save(step)):
             return False
+        if mesh.rank == 0:
+            self._write(step, pipeline)
+        mesh.barrier()
+        return True
+
+    def _write(self, step: int, pipeline) -> None:
         for name in os.listdir(self.directory):
             if _PARTIAL.match(name):
                 os.remove(os.path.join(self.directory, name))
@@ -67,7 +79,6 @@ class CheckpointManager:
         os.replace(tmp, self._path(step))
         for old in self.all_steps()[:-self.keep]:
             os.remove(self._path(old))
-        return True
 
     def restore(self, pipeline, step: Optional[int] = None
                 ) -> Optional[int]:

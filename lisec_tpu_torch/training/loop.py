@@ -8,9 +8,20 @@ mirror under ``tb/`` beside it when ``train.tensorboard`` is set).
 Checkpoints go to ``train.ckpt_dir`` every ``train.ckpt_every`` steps and
 at the last; ``train.resume`` restarts from the latest of them, the
 batch stream included. ``train.debug_nans`` stops the run at the first
-non-finite loss or gradient norm. Multi-host launch and data-parallel
-training are not ported yet: a config that asks for either raises
-``NotImplementedError``.
+non-finite loss or gradient norm.
+
+Data parallelism: with ``train.num_devices`` W > 1 the run is one
+process a rank of a process group that is up (``torchrun``, or
+``parallel.initialize_distributed``); every rank builds the global batch
+stream from ``train.seed`` and runs its rows, so W ranks train what one
+device trains on the same batches. With ``train.multihost`` the loop
+brings the group up itself (``train.coordinator``, ``num_processes``,
+``process_id``, else ``torchrun``'s environment, else it trains on one
+process) and each rank reads its own shard of the examples
+(``ProcessShardDataset``, seed ``train.seed + rank``) at a local batch of
+``batch_size / W``, as the JAX package's hosts do. Only rank 0 writes
+metrics, TensorBoard, progress lines and checkpoints; every rank keeps
+the history (global values) and restores a checkpoint.
 """
 
 from __future__ import annotations
@@ -56,17 +67,6 @@ class MetricsLogger:
             self.tb.close()
 
 
-def _refuse_unported(cfg: Config) -> None:
-    t = cfg.train
-    for asked, what in (
-            (t.multihost, "multi-host training (train.multihost)"),
-            (t.num_devices > 1, "data-parallel training "
-                                "(train.num_devices > 1)")):
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to lisec_tpu_torch yet")
-
-
 def _check_finite(aux: Dict[str, torch.Tensor], step: int) -> None:
     for k in ("loss", "grad_norm"):
         if not torch.isfinite(aux[k]):
@@ -83,12 +83,20 @@ def run_training(cfg: Config, device="cuda", progress: bool = True,
     when that is set."""
     from lisec_tpu_torch.api import build_model
     from lisec_tpu_torch.data.collate import make_batches, prefetch
+    from lisec_tpu_torch.parallel.mesh import (
+        ProcessShardDataset, initialize_distributed)
     from lisec_tpu_torch.training.checkpoint import CheckpointManager
 
-    _refuse_unported(cfg)
     t = cfg.train
+    if t.multihost:
+        initialize_distributed(
+            t.coordinator or None, t.num_processes or None,
+            t.process_id if t.process_id >= 0 else None, device=device)
     pipeline = build_model(cfg, device=device)
     pipeline.init_state(t.seed)
+    mesh = pipeline.mesh
+    lead = mesh.rank == 0
+    progress = progress and lead
 
     ckpt = None
     if t.ckpt_dir:
@@ -98,16 +106,25 @@ def run_training(cfg: Config, device="cuda", progress: bool = True,
             ckpt.restore(pipeline)
     if metrics_path is None and t.ckpt_dir:
         metrics_path = os.path.join(t.ckpt_dir, "metrics.jsonl")
-    logger = MetricsLogger(metrics_path, tensorboard=t.tensorboard)
+    logger = MetricsLogger(metrics_path if lead else None,
+                           tensorboard=t.tensorboard)
 
     # The batch stream is seekable (shuffle order derives from the seed
     # and the epoch, augmentation from the batch index), and the same as
     # the JAX package's, so a resumed run sees the batches the unbroken
     # one would have.
     start_step = pipeline.step
+    dataset = pipeline.make_dataset("train")
+    batch_size, seed = t.batch_size, t.seed
+    if mesh.process_local and mesh.world > 1:
+        if t.batch_size % mesh.world:
+            raise ValueError(f"train.batch_size={t.batch_size} does not "
+                             f"split over {mesh.world} processes")
+        dataset = ProcessShardDataset(dataset, mesh.rank, mesh.world)
+        batch_size //= mesh.world
+        seed += mesh.rank
     batches = prefetch(make_batches(
-        pipeline.make_dataset("train"), cfg.budget, t.batch_size,
-        shuffle=True, seed=t.seed,
+        dataset, cfg.budget, batch_size, shuffle=True, seed=seed,
         augment_fn=pipeline.augment_fn("train"), start_batch=start_step))
     history: List[Dict] = []
     t0 = time.time()
@@ -146,8 +163,8 @@ def run_training(cfg: Config, device="cuda", progress: bool = True,
                 print(f"[eval {step + 1}] {metrics}", flush=True)
 
     if ckpt is not None:
-        if ckpt.latest_step() != t.num_steps:
-            ckpt.save(t.num_steps, pipeline, force=True)
+        ckpt.save(t.num_steps, pipeline,
+                  force=ckpt.latest_step() != t.num_steps)
         ckpt.wait()
         ckpt.close()
     logger.close()

@@ -4,6 +4,10 @@
 the range segmenter's Lovász-softmax; the detectors' focal loss (alpha
 0.25, gamma 2) and smooth-L1 with SECOND's sin-difference angle trick.
 The other workloads' losses come with those workloads.
+
+Under a data mesh (``lisec_tpu_torch.parallel``) each returns this
+rank's share of the loss over the global batch: the ranks' shares sum
+to it.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from lisec_tpu_torch.parallel.mesh import all_gather, global_sum, share
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                   mask: Optional[torch.Tensor] = None,
@@ -20,7 +26,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                   ) -> torch.Tensor:
     """Mean softmax cross-entropy over the entries where ``mask`` (if
     given) is set and the label is not negative; ``class_weights``
-    weights each entry by its label's weight."""
+    weights each entry by its label's weight. The denominator counts the
+    global batch's entries."""
     safe = labels.clamp_min(0).long()
     ce = -torch.log_softmax(logits, dim=-1).gather(
         -1, safe[..., None])[..., 0]
@@ -29,7 +36,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     valid = labels >= 0
     if mask is not None:
         valid = valid & mask.bool()
-    denom = valid.sum().clamp_min(1)
+    denom = global_sum(valid.sum()).clamp_min(1)
     return torch.where(valid, ce, 0.0).sum() / denom
 
 
@@ -75,7 +82,12 @@ def lovasz_softmax(probs: torch.Tensor, labels: torch.Tensor, *,
     through one sort: each class's errors in descending order, ties to
     the lower index (a stable sort of the negated errors, as the JAX
     package's ``argsort``; the order of tied errors moves the
-    gradient)."""
+    gradient). The sort is not additive across ranks: under a data mesh
+    every rank gathers the global batch's pixels (with autograd), takes
+    the whole term and keeps 1/W of it."""
+    probs, labels = all_gather(probs), all_gather(labels)
+    if mask is not None:
+        mask = all_gather(mask)
     probs = probs.reshape(-1, num_classes)
     labels = labels.reshape(-1)
     valid = labels >= 0
@@ -95,4 +107,4 @@ def lovasz_softmax(probs: torch.Tensor, labels: torch.Tensor, *,
     grad = torch.cat([jaccard[:, :1], jaccard[:, 1:] - jaccard[:, :-1]], 1)
     present = gts[:, 0] > 0
     losses = torch.where(present, (errors_sorted * grad).sum(1), 0.0)
-    return losses.sum() / present.sum().clamp_min(1)
+    return share(losses.sum() / present.sum().clamp_min(1))

@@ -615,10 +615,29 @@ def test_train_entry_point_is_deterministic():
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
-@pytest.mark.parametrize("override", [
-    "train.multihost=true", "train.num_devices=4"])
-def test_unported_options_raise(override):
+def test_data_parallel_without_a_process_group_raises(monkeypatch):
+    """``train.num_devices`` > 1 needs a process group; without one the run
+    raises with how to launch, and never trains on one rank."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     cfg = apply_overrides(lisec_tpu_torch.load_config(TINY),
-                          ["train.num_steps=1", override])
-    with pytest.raises(NotImplementedError):
+                          ["train.num_steps=1", "train.num_devices=4"])
+    with pytest.raises(RuntimeError, match="torchrun"):
         lisec_tpu_torch.train(cfg, device="cpu", progress=False)
+
+
+def test_multihost_without_coordinator_trains_one_process(monkeypatch):
+    """``train.multihost`` with no coordinator and no launcher's
+    environment trains on one process, as the JAX package does."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    cfg = apply_overrides(lisec_tpu_torch.load_config(TINY), [
+        "train.num_steps=2", "train.log_every=1", "data.fixture_size=8",
+        "train.ckpt_dir="])
+    multi = apply_overrides(cfg, ["train.multihost=true"])
+    (pipe, got), (_, want) = (
+        lisec_tpu_torch.train(c, device="cpu", progress=False)
+        for c in (multi, cfg))
+    assert pipe.mesh.world == 1 and pipe.step == 2
+    assert not torch.distributed.is_initialized()
+    assert [h["loss"] for h in got] == [h["loss"] for h in want]
