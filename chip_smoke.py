@@ -50,7 +50,12 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    before and read just after, and hold the kernel route against the
    plain route; drive SECOND training
    (``configs/second_fixture_conv.yaml`` at full width, batch 4) the same
-   way as phase 4 (10 gathers of the unpaint source a step);
+   way as phase 4 (10 gathers of the unpaint source a step); then
+   ``build_subm_scatter_rulebook`` at SECOND's level-0 geometry (the
+   voxels of 8 ray-cast scenes cut to ragged counts, V = 16,000) with
+   the counts set to 0 just before a build and read just after (one
+   ``segment_paint``, nothing else), equal to ``build_scatter_rulebook``,
+   its paint call bit-equal to the plain version, both builders timed;
 6. time the PointPillars predict at batch 8 and 32, the SECOND predict
    at batch 1 and 8 with its stages (and its two paint calls at batch
    8), both train steps and their parts at batch 4, and every kernel, its
@@ -62,12 +67,15 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    points' xyz and mask, on both of its routes), ``gather_rows`` (plain
    gathers and the fused grouping) and ``scatter_rows`` against their
    plain versions at the path's shapes and on edge cases (the scatter's
-   tiling among them); predict through ``infer`` at batch 16 and 1 (2
-   FPS and 4 gather launches each, nothing else), the kernel route
-   against the plain route; ``pointnet2_partseg_tiny`` on the card
-   against the CPU; train steps at batch 16 (Adam, step schedule,
-   augmentation; 3 scatter launches a step) held against the plain route
-   with dropout made the identity, a short ``train(cfg)``; the predict by
+   tiling among them); ``ops.gather_points`` on (8, 16384, 3) points ->
+   4,096 rows (one ``gather_rows`` launch with the counts set to 0 just
+   before, bit-equal to the plain version, timed); predict through
+   ``infer`` at batch 16 and 1 (2 FPS and 4 gather launches each,
+   nothing else), the kernel route against the plain route;
+   ``pointnet2_partseg_tiny`` on the card against the CPU; train steps
+   at batch 16 (Adam, step schedule, augmentation; 3 scatter launches a
+   step) held against the plain route with dropout made the identity, a
+   short ``train(cfg)``; the predict by
    stage, the train step by part, every point-kernel call (FPS beside its
    round floor: its block reductions and barriers alone);
 8. range-image segmentation (``configs/rangeseg_fixture_conv.yaml`` at
@@ -82,7 +90,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    1 spread launch, nothing else), the kernel route against the plain
    route (point labels, pixel labels, the range image equal);
    ``rangeseg_tiny`` on the card against the CPU; train steps at batch 8
-   (adamw, onecycle, clip 10, rotate_z; 1 paint a step) held against the
+   (adamw, onecycle, clip 10, no augmentation, as the JAX pipeline
+   trains; 1 paint a step) held against the
    plain route, a short ``train(cfg)``; the predict at batch 8 and 1 at
    both densities by stage, the train step by part, the paint and spread
    calls;
@@ -1801,6 +1810,127 @@ def phase_second_serving(pipe, cfg):
     return launches
 
 
+# The submanifold rulebook (PR 14): one paint (the 13 inverses) a build,
+# nothing else.
+SUBM_LAUNCHES_PER_BUILD = {"pillar_canvas_fused": 0, "segment_paint": 1,
+                           "segment_unpaint": 0, "spread_accumulate": 0,
+                           "fps": 0, "gather_rows": 0, "scatter_rows": 0}
+
+
+def subm_level0(pipe, cfg, b=8):
+    """Level 0 of SECOND serving at full width: the voxels of ``b``
+    ray-cast scenes on ``second_kitti``'s grid, cloud i cut to its first
+    (i + 1) / b of the points so the counts are ragged."""
+    from lisec_tpu_torch.ops.sparse_conv import SparseConvSpec
+    batch, _ = scene_batch(cfg, b, seed0=700)
+    n = batch["point_mask"].shape[1]
+    for i in range(b):
+        batch["point_mask"][i, (i + 1) * n // b:] = False
+    _, coords, _, num = pipe._model_args(pipe.device_batch(batch))
+    spec = SparseConvSpec((3, 3, 3), (1, 1, 1), (1, 1, 1),
+                          tuple(reversed(pipe.grid)))
+    return coords, num.to(coords.dtype), spec
+
+
+def phase_subm_rulebook(pipe, cfg):
+    """``build_subm_scatter_rulebook`` at SECOND's level-0 geometry
+    (1408 x 1600 x 40, V = 16,000, batch 8, ragged counts): the launch
+    counts set to 0 just before a build and read just after (one
+    ``segment_paint``, nothing else); the rulebook equal to
+    ``build_scatter_rulebook``'s; its paint call bit-equal to
+    ``segment_paint_reference`` (a ``kernel_check`` line); both builders
+    timed, and the paint call with its bound, plain version and
+    ``index_add_``. Returns the paint's row."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.sparse_conv import (
+        build_scatter_rulebook, build_subm_scatter_rulebook)
+    coords, num, spec = subm_level0(pipe, cfg)
+    b, v, _ = coords.shape
+    if len(set(num.tolist())) < 2 or int(num.max()) > v:
+        raise AssertionError(f"subm rulebook: counts {num.tolist()} are "
+                             f"not ragged within {v}")
+    calls, real = [], sp.segment_paint
+
+    def recorded(vals, ids, **kw):
+        calls.append((vals, ids, kw))
+        return real(vals, ids, **kw)
+    sp.segment_paint = recorded
+    try:
+        zero_all_launches()
+        got = build_subm_scatter_rulebook(coords, num, spec)
+        torch.cuda.synchronize()
+        launches = all_launches()
+    finally:
+        sp.segment_paint = real
+    if launches != SUBM_LAUNCHES_PER_BUILD:
+        raise AssertionError(f"subm rulebook launches {launches}, expected "
+                             f"{SUBM_LAUNCHES_PER_BUILD}")
+    want = build_scatter_rulebook(coords, num, coords, num, spec)
+    if got.shape != (b, 27, v) or not torch.equal(got, want):
+        raise AssertionError(
+            f"subm rulebook: {int((got != want).sum())} entries differ "
+            f"from build_scatter_rulebook")
+    (vals, ids, kw), = calls
+    if tuple(vals.shape) != (b * 13, v, 1) or kw != {"num_cells": v,
+                                                     "num_max": 0}:
+        raise AssertionError(f"subm paint call {tuple(vals.shape)} {kw}")
+    out = sp.segment_paint(vals, ids, **kw)
+    ref = sp.segment_paint_reference(vals, ids, **kw)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"subm paint: {int((out != ref).sum())} "
+                             f"elements differ from the plain version")
+    err = float((out - ref).abs().max())
+    emit("kernel_check", kernel="segment_paint", case="subm_inverse",
+         rows=list(vals.shape), num_cells=v, bit_equal=True,
+         max_abs_err=err)
+    row = paint_call_row(vals, ids, v, 0, None)
+    row["max_abs_err"] = err          # the row gets its device_ms at the end
+    emit("subm_rulebook", config="second_kitti", grid=list(spec.grid_in),
+         batch=b, voxels=num.tolist(), launches=launches,
+         equal_to_general=True,
+         subm_ms=cuda_ms(lambda: build_subm_scatter_rulebook(
+             coords, num, spec), 10),
+         general_ms=cuda_ms(lambda: build_scatter_rulebook(
+             coords, num, coords, num, spec), 10),
+         paint=row)
+    return row
+
+
+def phase_gather_points(gen):
+    """``ops.gather_points`` on (8, 16384, 3) points -> 4,096 rows a
+    cloud: the counts set to 0 just before the call and read just after
+    (one ``gather_rows`` launch, nothing else), the rows bit-equal to the
+    plain version (a ``kernel_check`` line), and the call timed. Returns
+    its row."""
+    import torch
+    from lisec_tpu_torch.ops import gather_points
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    pts = torch.randn((8, 16384, 3), generator=gen).cuda()
+    idx = torch.randint(0, 16384, (8, 4096), generator=gen,
+                        dtype=torch.int32).cuda()
+    zero_all_launches()
+    got = gather_points(pts, idx)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    expected = {**SUBM_LAUNCHES_PER_BUILD, "segment_paint": 0,
+                "gather_rows": 1}
+    if launches != expected:
+        raise AssertionError(f"gather_points launches {launches}, "
+                             f"expected {expected}")
+    ref = gr.gather_rows_reference(pts, idx)
+    if got.shape != (8, 4096, 3) or not torch.equal(got, ref):
+        raise AssertionError("gather_points differs from the plain version")
+    err = float((got - ref).abs().max())
+    emit("kernel_check", kernel="gather_rows", entry="gather_points",
+         points=list(pts.shape), ids=list(idx.shape), bit_equal=True,
+         max_abs_err=err)
+    row = gather_call_row(pts, idx)
+    row["max_abs_err"] = err
+    emit("gather_points", launches=launches, call=row)
+    return row
+
+
 class EventTimer:
     """CUDA-event spans around wrapped callables, summed by name."""
 
@@ -2734,7 +2864,8 @@ RANGESEG_DENSITIES = (16000, 120000)
 
 def rangeseg_config(num_steps=TRAIN_STEPS, log_every=1):
     """The full-width range-seg config; the overrides are no widths
-    (no checkpoint is saved; augmentation, rotate_z, stays on)."""
+    (no checkpoint is saved). The pipeline augments nothing, as the JAX
+    package's does not, whatever ``data.augment`` says."""
     from lisec_tpu_torch.config import apply_overrides, load_config
     return apply_overrides(load_config(RANGESEG_CFG), [
         'train.ckpt_dir=""', f"train.num_steps={num_steps}",
@@ -2957,7 +3088,7 @@ def rangeseg_loss_and_grads(pipe, batch):
 
 def phase_rangeseg_train():
     """Full-width range-seg train steps at batch 8 (adamw, onecycle, clip
-    10, rotate_z augmentation) through ``train_step``: launches (1 paint a
+    10, no augmentation) through ``train_step``: launches (1 paint a
     step, nothing else), finite metrics, every tensor moved; the first
     step's loss (1e-5) and gradients (1e-3 of each L2 norm) against the
     plain route; then a short ``lisec_tpu_torch.train`` whose loss falls."""
@@ -5325,6 +5456,7 @@ def main() -> int:
     launches, err = phase_main_path(pipe, cfg)
     phase_tiny_vs_cpu("pointpillars_tiny", TINY_CFG, keep_sets=True)
     second_launches = phase_second_serving(second_pipe, second_cfg)
+    subm_row = phase_subm_rulebook(second_pipe, second_cfg)
     phase_tiny_vs_cpu("second_tiny", SECOND_TINY_CFG, keep_sets=False)
     train_pipe, train_cfg, train_batch, train_launches = phase_train_path(
         "pointpillars_fixture_hard_conv", TRAIN_CFG, WEIGHTS,
@@ -5342,6 +5474,7 @@ def main() -> int:
     partseg_cfg = load_config(PARTSEG_CFG)
     partseg_pipe = build_model(partseg_cfg)        # weights from seed 0
     point_err = phase_point_kernel_check(partseg_pipe, partseg_cfg, gen)
+    gather_points_row = phase_gather_points(gen)
     partseg_launches = phase_partseg_serving(partseg_pipe, partseg_cfg)
     phase_partseg_tiny_vs_cpu()
     partseg_train = phase_partseg_train()
@@ -5462,7 +5595,11 @@ def main() -> int:
                     vb_launches["segment_paint"],
                 "voxel_table_max_abs_err": 0.0,
                 "voxel_table_batch_8": vb_rows[8],
-                "voxel_table_batch_32": vb_rows[32]}
+                "voxel_table_batch_32": vb_rows[32],
+                # The submanifold rulebook's inverses at SECOND's level 0.
+                "launches_per_subm_rulebook": 1,
+                "subm_inverse_max_abs_err": subm_row["max_abs_err"],
+                "subm_inverse": subm_row}
                if mod is sp else {}),
             "launches_per_voxel_buffer_train_step":
                 vb_train[3][name] / TRAIN_STEPS,
@@ -5508,7 +5645,12 @@ def main() -> int:
             "cls_max_abs_err": cls_err[name],
             ("cls_train_step" if info is gr.SCATTER_INFO
              else "cls_predict"): summed(cls),
-            "cls_calls": cls})
+            "cls_calls": cls,
+            **({"launches_per_gather_points": 1,
+                "gather_points_max_abs_err":
+                    gather_points_row["max_abs_err"],
+                "gather_points": gather_points_row}
+               if info is gr.GATHER_INFO else {})})
     for k in kernels:
         k["launches_under_dp_rank_0"] = under_dp[k["name"]]
     print(json.dumps({"kernels": kernels}))

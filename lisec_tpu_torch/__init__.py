@@ -38,7 +38,12 @@ with ``train.num_devices`` W > 1 runs one process a rank (``torchrun``;
 NCCL on the card, gloo on the CPU) and computes what one device computes
 on the global batch; ``Pipeline.infer_dp`` predicts a global batch's
 rows on their ranks; ``train.multihost`` feeds each process its own
-shard of the examples. Public API::
+shard of the examples. The surface is complete: every public name of
+the JAX package has its counterpart at the same module path (the host
+helpers of ``native/``, the fixture writers, ``ops.gather_points``,
+``ops.sparse_conv.build_subm_scatter_rulebook``, the package exports,
+``__version__``), apart from the few TPU-only names that
+``tests/test_torch_surface.py`` lists with their reasons. Public API::
 
     cfg      = lisec_tpu_torch.load_config("configs/pointpillars_kitti.yaml")
     pipeline = lisec_tpu_torch.build_model(cfg)          # device="cuda"
@@ -55,6 +60,9 @@ Every entry point takes ``device`` (default ``"cuda"``; ``"cpu"`` runs the
 kernels' plain PyTorch versions, as the tests do).
 """
 
+from lisec_tpu_torch.version import __version__
+from lisec_tpu_torch.config import (
+    Config, apply_overrides, config_from_dict, config_to_dict)
 from lisec_tpu_torch.api import (
     build_model,
     evaluate,
@@ -64,14 +72,16 @@ from lisec_tpu_torch.api import (
     preprocess,
     train,
 )
-from lisec_tpu_torch.config import Config, apply_overrides
 from lisec_tpu_torch.weights import (
     convert_flax_arrays, load_weights_npz, to_flax_arrays)
 
 __all__ = [
+    "__version__",
     "Config",
     "apply_overrides",
     "build_model",
+    "config_from_dict",
+    "config_to_dict",
     "convert_flax_arrays",
     "evaluate",
     "infer",

@@ -30,7 +30,8 @@ from lisec_tpu_torch.config import apply_overrides, load_config
 
 def main(argv=None, device="cuda"):
     """Run one verb; ``device`` exists for the tests, which run on the
-    CPU. ``infer`` also returns its outputs (tensors on ``device``)."""
+    CPU. ``infer`` also returns its outputs (tensors on ``device``),
+    ``eval`` its metrics."""
     parser = argparse.ArgumentParser(prog="lisec-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -60,7 +61,7 @@ def main(argv=None, device="cuda"):
                 dist.destroy_process_group()
     elif args.command == "eval":
         from lisec_tpu_torch.api import evaluate
-        evaluate(cfg, device=device)
+        return evaluate(cfg, device=device)
     elif args.command == "infer":
         from lisec_tpu_torch.api import (
             build_model, infer, load_cloud, preprocess)

@@ -15,15 +15,11 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
+from lisec_tpu_torch import native
 
 def pad_points(cloud: np.ndarray, max_points: int) -> Dict[str, np.ndarray]:
     """Pad/truncate one (N, C) cloud to (max_points, C) + bool mask."""
-    cloud = np.ascontiguousarray(cloud, np.float32)
-    n = min(len(cloud), max_points)
-    points = np.zeros((max_points, cloud.shape[1]), np.float32)
-    points[:n] = cloud[:n]
-    mask = np.zeros(max_points, bool)
-    mask[:n] = True
+    points, mask = native.pad_points(cloud, max_points)
     return {"points": points, "point_mask": mask}
 
 

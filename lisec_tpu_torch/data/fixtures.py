@@ -1,19 +1,23 @@
 """Synthetic fixtures (copy of ``_unit_shape``, ``make_cls_cloud``,
 ``make_partseg_cloud``, ``make_detection_scene``, ``_ray_box_t``,
-``make_detection_scene_hard`` and ``make_semantic_scene`` from
-``lisec_tpu/data/fixtures.py``).
+``make_detection_scene_hard``, ``make_semantic_scene`` and the writers
+``write_kitti_fixture``, ``write_semantickitti_fixture`` and
+``write_modelnet_fixture`` from ``lisec_tpu/data/fixtures.py``).
 
 Real datasets are not shipped, so training, the smoke run and the tests
 draw data from a seed: class-conditioned and part-labelled shapes in the
 unit sphere, lidar-like scenes of box-shaped clusters on ground clutter
-or ray-cast scenes with occlusion, and semantically labelled scans. The
-copy must reproduce the JAX package's arrays bit for bit
+or ray-cast scenes with occlusion, and semantically labelled scans; the
+writers put them on disk in the KITTI, SemanticKITTI and ModelNet40
+layouts for the file loaders. The copy must reproduce the JAX package's
+arrays and files bit for bit
 (``tests/test_torch_pointpillars.py``, ``tests/test_torch_partseg.py``,
 ``tests/test_torch_rangeseg.py``, ``tests/test_torch_cls.py``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -344,3 +348,93 @@ def make_semantic_scene(
     rband = np.digitize(r, [10, 30]).astype(np.int64)
     labels = (band * 3 + rband) % num_classes
     return {"points": pts, "point_labels": labels.astype(np.int32)}
+
+
+# ---------------------------------------------------------------------------
+# On-disk materialization in the real formats: the same file trees, byte
+# for byte, as the JAX package's writers.
+
+
+def write_kitti_fixture(root: str, num_frames: int = 3, seed: int = 0) -> None:
+    """Write velodyne/.bin + calib + label_2 in the KITTI layout."""
+    os.makedirs(os.path.join(root, "training", "velodyne"), exist_ok=True)
+    os.makedirs(os.path.join(root, "training", "calib"), exist_ok=True)
+    os.makedirs(os.path.join(root, "training", "label_2"), exist_ok=True)
+    # Identity-ish calibration: camera frame = lidar rotated (x=-y', z=x').
+    P2 = np.array([[700.0, 0, 600, 45], [0, 700, 180, -0.3],
+                   [0, 0, 1, 0.005]])
+    R0 = np.eye(3)
+    # lidar (x fwd, y left, z up) -> cam (x right, y down, z fwd)
+    Tr = np.array([[0.0, -1, 0, 0], [0, 0, -1, -0.08], [1, 0, 0, -0.27]])
+    ids = []
+    for i in range(num_frames):
+        scene = make_detection_scene(seed + i)
+        fid = f"{i:06d}"
+        ids.append(fid)
+        scene["points"].astype(np.float32).tofile(
+            os.path.join(root, "training", "velodyne", fid + ".bin"))
+        with open(os.path.join(root, "training", "calib", fid + ".txt"),
+                  "w") as f:
+            f.write("P0: " + " ".join("%g" % v for v in P2.ravel()) + "\n")
+            f.write("P1: " + " ".join("%g" % v for v in P2.ravel()) + "\n")
+            f.write("P2: " + " ".join("%g" % v for v in P2.ravel()) + "\n")
+            f.write("P3: " + " ".join("%g" % v for v in P2.ravel()) + "\n")
+            f.write("R0_rect: " + " ".join("%g" % v for v in R0.ravel())
+                    + "\n")
+            f.write("Tr_velo_to_cam: "
+                    + " ".join("%g" % v for v in Tr.ravel()) + "\n")
+        with open(os.path.join(root, "training", "label_2", fid + ".txt"),
+                  "w") as f:
+            for box, cls in zip(scene["gt_boxes"], scene["gt_classes"]):
+                x, y, z, l, w, h, yaw = box
+                # lidar -> camera coords for the label file.
+                cam = Tr @ np.array([x, y, z, 1.0])
+                cam_bottom = cam + np.array([0, h / 2, 0])
+                ry = -yaw - np.pi / 2
+                name = ["Car", "Pedestrian", "Cyclist"][int(cls) % 3]
+                f.write(
+                    f"{name} 0.00 0 0.0 0 0 50 50 "
+                    f"{h:.2f} {w:.2f} {l:.2f} "
+                    f"{cam_bottom[0]:.2f} {cam_bottom[1]:.2f} "
+                    f"{cam_bottom[2]:.2f} {ry:.2f}\n")
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+def write_semantickitti_fixture(root: str, num_scans: int = 2,
+                                seed: int = 0) -> None:
+    """Write sequences/00/velodyne/*.bin + labels/*.label layout."""
+    seq = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq, "velodyne"), exist_ok=True)
+    os.makedirs(os.path.join(seq, "labels"), exist_ok=True)
+    for i in range(num_scans):
+        scene = make_semantic_scene(seed + i)
+        sid = f"{i:06d}"
+        scene["points"].astype(np.float32).tofile(
+            os.path.join(seq, "velodyne", sid + ".bin"))
+        # semantic in lower 16 bits, instance id in upper 16.
+        lab = (scene["point_labels"].astype(np.uint32)
+               | (np.uint32(7) << 16))
+        lab.tofile(os.path.join(seq, "labels", sid + ".label"))
+
+
+def write_modelnet_fixture(root: str, num_per_class: int = 2,
+                           num_classes: int = 4, seed: int = 0) -> None:
+    """Write the modelnet40_normal_resampled-style txt layout."""
+    names = [f"class{c:02d}" for c in range(num_classes)]
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "shape_names.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    train_ids = []
+    for c, name in enumerate(names):
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        for k in range(num_per_class):
+            pts = make_cls_cloud(seed * 131 + k, c, 256)
+            normals = np.zeros_like(pts)
+            arr = np.concatenate([pts, normals], -1)
+            sid = f"{name}_{k:04d}"
+            np.savetxt(os.path.join(root, name, sid + ".txt"), arr,
+                       delimiter=",", fmt="%.6f")
+            train_ids.append(sid)
+    with open(os.path.join(root, "modelnet_train.txt"), "w") as f:
+        f.write("\n".join(train_ids) + "\n")

@@ -16,6 +16,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from lisec_tpu_torch import native
 from lisec_tpu_torch.data.fixtures import (
     make_detection_scene, make_detection_scene_hard)
 from lisec_tpu_torch.registry import register_dataset
@@ -113,13 +114,10 @@ def boxes_camera_to_lidar(objs: List[KittiObject],
 
 
 def read_velodyne(path: str) -> np.ndarray:
-    """(N, 4) float32 x, y, z, intensity of one velodyne ``.bin``."""
-    raw = np.fromfile(path, dtype=np.float32)
-    if raw.size % 4:
-        raise ValueError(
-            f"{path!r}: KITTI .bin must hold N x 4 float32 values, "
-            f"got {raw.size} floats (not divisible by 4)")
-    return raw.reshape(-1, 4)
+    """(N, 4) float32 x, y, z, intensity of one velodyne ``.bin``, read
+    as the JAX package reads it (``native.read_velodyne``: whole points,
+    at most 300,000, a partial trailing record dropped)."""
+    return native.read_velodyne(path)
 
 
 def get_label_objects(path: str) -> List[KittiObject]:

@@ -61,6 +61,24 @@ def rotated_iou_bev_np(box_a: np.ndarray, box_b: np.ndarray) -> float:
     return float(inter / max(union, 1e-8))
 
 
+def iou_3d_np(box_a: np.ndarray, box_b: np.ndarray) -> float:
+    """Rotated 3D IoU: BEV intersection x z-overlap."""
+    poly = list(_corners(box_a))
+    cb = _corners(box_b)
+    for k in range(4):
+        poly = _clip(poly, cb[k], cb[(k + 1) % 4])
+        if not poly:
+            return 0.0
+    inter_bev = _area(poly)
+    za0, za1 = box_a[2] - box_a[5] / 2, box_a[2] + box_a[5] / 2
+    zb0, zb1 = box_b[2] - box_b[5] / 2, box_b[2] + box_b[5] / 2
+    zi = max(0.0, min(za1, zb1) - max(za0, zb0))
+    inter = inter_bev * zi
+    vol_a = box_a[3] * box_a[4] * box_a[5]
+    vol_b = box_b[3] * box_b[4] * box_b[5]
+    return float(inter / max(vol_a + vol_b - inter, 1e-8))
+
+
 def _corners_vec(boxes: np.ndarray) -> np.ndarray:
     """(N, 7) -> (N, 4, 2) CCW BEV corners, vectorized."""
     x, y = boxes[:, 0], boxes[:, 1]

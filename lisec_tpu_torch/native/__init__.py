@@ -1,6 +1,8 @@
-"""Host-side geometry for the detection augmentation (port of
-``transform_cloud``, ``flip_y``, ``points_in_rbbox_first`` and
-``perturb_boxes`` from ``lisec_tpu/native/__init__.py``).
+"""Host-side helpers: the velodyne reader, the padding of a cloud to its
+budget, the range crop and the geometry of the detection augmentation
+(port of ``lisec_tpu/native/__init__.py``: ``read_velodyne``,
+``pad_points``, ``crop_range``, ``transform_cloud``, ``flip_y``,
+``points_in_rbbox_first`` and ``perturb_boxes``).
 
 The JAX package runs these in its C++ library
 (``lisec_tpu/native/src/lisec_native.cc``) when it loads, else in a
@@ -12,7 +14,9 @@ and every angle's cosine and sine come from the C math library's own
 ``sincosf`` (what the compiled library calls), one call per box. So they
 give the library's answer bit for bit, with no second route.
 
-Every entry point works in place and, like the library's, refuses an
+The reader, the padding and the crop are plain numpy with the library's
+contracts (its whole-record reads, its cap, its in-place compaction).
+The geometry helpers work in place and, like the library's, refuse an
 array of the wrong dtype or one that is not C-contiguous.
 """
 
@@ -54,6 +58,51 @@ def _check_inplace(a: np.ndarray, dtype, name: str) -> None:
     if not a.flags.c_contiguous:
         raise ValueError(f"{name}: array must be C-contiguous "
                          "(pass a copy, not a slice/view)")
+
+
+def read_velodyne(path: str, max_points: int = 300_000) -> np.ndarray:
+    """(N, 4) float32 x, y, z, intensity of a KITTI velodyne ``.bin``:
+    whole 16-byte points only, at most ``max_points`` of them, a
+    trailing partial record dropped. Raises ``IOError`` when the file
+    cannot be opened."""
+    try:
+        with open(path, "rb") as f:
+            raw = np.fromfile(f, np.float32, count=4 * max_points)
+    except OSError as e:
+        raise IOError(f"cannot read {path!r}") from e
+    return raw[:raw.size - raw.size % 4].reshape(-1, 4)
+
+
+def pad_points(cloud: np.ndarray, max_points: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(cloud (N, C)) -> the first ``max_points`` rows as float32, zero
+    padded to (max_points, C), and the (max_points,) bool mask of the
+    rows that hold points."""
+    cloud = np.ascontiguousarray(cloud, np.float32)
+    keep = min(len(cloud), max_points)
+    out = np.zeros((max_points, cloud.shape[1]), np.float32)
+    out[:keep] = cloud[:keep]
+    mask = np.zeros(max_points, bool)
+    mask[:keep] = True
+    return out, mask
+
+
+def crop_range(points: np.ndarray, lo, hi) -> np.ndarray:
+    """The rows of ``points`` whose xyz lie in ``[lo, hi)`` (f32
+    compares; a NaN coordinate is outside), in order. As in the library,
+    the rows are compacted to the front of a float32 C-contiguous copy
+    of ``points`` and that copy's head is returned: where ``points``
+    already is float32 and C-contiguous the copy is ``points`` itself,
+    so the caller's buffer changes (its rows past the result keep their
+    old values)."""
+    pts = np.ascontiguousarray(points, np.float32)
+    lo = np.ascontiguousarray(lo, np.float32)[:3]
+    hi = np.ascontiguousarray(hi, np.float32)[:3]
+    xyz = pts[:, :3]
+    inside = np.all((xyz >= lo) & (xyz < hi), axis=1)
+    n = int(inside.sum())
+    pts[:n] = pts[inside]
+    return pts[:n]
 
 
 def transform_cloud(points: np.ndarray, rotation: np.ndarray,

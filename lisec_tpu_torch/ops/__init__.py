@@ -6,7 +6,7 @@ from lisec_tpu_torch.ops.voxelize import (
     point_cell_ids, voxelize, voxelize_batch)
 from lisec_tpu_torch.ops.fps import farthest_point_sampling
 from lisec_tpu_torch.ops.ball_query import ball_query
-from lisec_tpu_torch.ops.grouping import group_points
+from lisec_tpu_torch.ops.grouping import gather_points, group_points
 from lisec_tpu_torch.ops.three_nn import three_interpolate, three_nn
 from lisec_tpu_torch.ops.scatter import pillar_scatter, pillar_scatter_max
 from lisec_tpu_torch.ops.boxes import (
@@ -23,7 +23,7 @@ __all__ = [
     "voxelize", "voxelize_batch", "point_cell_ids",
     "farthest_point_sampling",
     "ball_query",
-    "group_points",
+    "group_points", "gather_points",
     "three_nn", "three_interpolate",
     "pillar_scatter", "pillar_scatter_max",
     "encode_boxes", "decode_boxes", "points_in_rbbox", "boxes_to_corners_bev",

@@ -45,6 +45,13 @@ def _gather(features: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
     return out if len(lead) == 1 else out.reshape(*lead, -1, c)
 
 
+def gather_points(points: torch.Tensor, indices: torch.Tensor
+                  ) -> torch.Tensor:
+    """Gather rows: points (..., N, C), indices (..., M) -> (..., M, C);
+    the gather kernel on a CUDA tensor, its plain version on a CPU one."""
+    return _gather(points, indices)
+
+
 def group_points(features: torch.Tensor, indices: torch.Tensor
                  ) -> torch.Tensor:
     """features (..., N, C), indices (..., M, K) -> (..., M, K, C)."""

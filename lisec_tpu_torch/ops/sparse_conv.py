@@ -192,6 +192,20 @@ def build_scatter_rulebook(coords_in: torch.Tensor, num_in: torch.Tensor,
     output grid and is in the output list. The JAX package finds the
     list position with a tagged merge sort because gathers are slow on
     its machine; a binary search gives the same integers."""
+    return _scatter_rulebook_offsets(coords_in, num_in, coords_out, num_out,
+                                     spec, range(_num_offsets(spec)))
+
+
+def _num_offsets(spec: SparseConvSpec) -> int:
+    kz, ky, kx = spec.kernel_size
+    return kz * ky * kx
+
+
+def _scatter_rulebook_offsets(coords_in, num_in, coords_out, num_out,
+                              spec: SparseConvSpec,
+                              offs_idx: range) -> torch.Tensor:
+    """``build_scatter_rulebook`` restricted to the kernel offsets
+    ``offs_idx`` (static): (B, len(offs_idx), V_in) int32."""
     v_in, v_out = coords_in.shape[1], coords_out.shape[1]
     dev = coords_in.device
     go = spec.grid_out
@@ -201,7 +215,7 @@ def build_scatter_rulebook(coords_in: torch.Tensor, num_in: torch.Tensor,
 
     # Per axis with Python scalars: a stride or padding tensor would be
     # copied from the host at every call, and the copy waits for the card.
-    offs = spec.offsets(dev)
+    offs = spec.offsets(dev)[offs_idx.start:offs_idx.stop:offs_idx.step]
     ok = _valid_rows(num_in, v_in)[:, None, :]
     cand = []
     for ax in range(3):
@@ -212,6 +226,44 @@ def build_scatter_rulebook(coords_in: torch.Tensor, num_in: torch.Tensor,
     # _lin_ids gives out-of-grid candidates the sentinel.
     lin_q = torch.where(ok, _lin_ids(*cand, go), n_out_cells)
     return _rank_in_sorted(lin_out, lin_q, n_out_cells)
+
+
+def build_subm_scatter_rulebook(coords: torch.Tensor, num: torch.Tensor,
+                                spec: SparseConvSpec) -> torch.Tensor:
+    """Submanifold scatter rulebook (output set = input set, stride 1):
+    (B, K, V) int32, equal to ``build_scatter_rulebook(coords, num,
+    coords, num, spec)``, with the search done for half the offsets.
+
+    The centre offset is the identity on the valid rows; offset k and
+    its point mirror K - 1 - k are inverse partial permutations; and each
+    offset's map is increasing over its valid entries. So offsets
+    0..K//2-1 go through the search, and each of their maps is inverted
+    by one ``segment_paint`` launch over (B * K//2, V, 1) rows: the value
+    of row i is i + 1 (0 where the map is -1), painted as a sum onto row
+    ``out_of[i]`` (the running max of the map, at least 0, so the
+    targets are sorted and an empty entry adds 0 to an earlier row).
+    Every row of the table then holds its source + 1 or 0, and the
+    mirrors are those inverses in reversed offset order. The JAX
+    package's version (``lisec_tpu/ops/sparse_conv.py``) is the
+    reference of this identity; neither encoder uses it."""
+    from lisec_tpu_torch.ops.cuda.segment_paint import segment_paint
+    b, v, _ = coords.shape
+    k = _num_offsets(spec)
+    if k % 2 == 0 or spec.stride != (1, 1, 1):
+        raise ValueError(f"a submanifold rulebook needs an odd tap count "
+                         f"and stride 1, got {spec}")
+    half = k // 2
+    first = _scatter_rulebook_offsets(coords, num, coords, num, spec,
+                                      range(half))            # (B, half, V)
+    rows = torch.arange(v, dtype=torch.int32, device=coords.device)
+    ident = torch.where(_valid_rows(num, v), rows, -1)
+    flat = first.reshape(b * half, v)
+    src = torch.where(flat >= 0, rows.float() + 1.0, 0.0)
+    tgt = torch.cummax(flat, dim=1).values.clamp_(min=0)
+    table = segment_paint(src[..., None].contiguous(), tgt.contiguous(),
+                          num_cells=v, num_max=0)             # (B*half, V, 1)
+    inv = (torch.round(table[..., 0]).to(torch.int32) - 1).view(b, half, v)
+    return torch.cat([first, ident[:, None], inv.flip(1)], dim=1)
 
 
 def submanifold_sources(out_of: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,6 @@ from typing import Dict
 import torch
 
 from lisec_tpu_torch.config import Config
-from lisec_tpu_torch.data.augment import augment_cloud
 from lisec_tpu_torch.data.semantickitti import SemanticKitti
 from lisec_tpu_torch.models.rangeseg import RangeSegNet
 from lisec_tpu_torch.ops.knn_refine import knn_refine_batch
@@ -52,12 +51,6 @@ class RangeSegPipeline(Pipeline):
 
     def make_dataset(self, split: str):
         return SemanticKitti(self.cfg, split)
-
-    def augment_fn(self, split: str):
-        if split != "train" or not self.cfg.data.augment.enabled:
-            return None
-        aug = self.cfg.data.augment
-        return lambda s, rng: augment_cloud(s, rng, aug)
 
     def _project(self, points, point_mask) -> RangeImage:
         return range_project_batch(

@@ -45,6 +45,13 @@ def test_chip_smoke_names_no_jax():
     assert not re.search(r"lisec_tpu(?!_torch)", src)
 
 
+def test_convergence_script_names_no_jax():
+    with open(os.path.join(ROOT, "convergence_torch.py")) as f:
+        src = f.read()
+    assert not re.search(r"\bjax\b", src)
+    assert not re.search(r"lisec_tpu(?!_torch)", src)
+
+
 def test_no_silent_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card; the test is for one without")

@@ -27,7 +27,7 @@ from lisec_tpu.bench_lib import save_weights_npz
 from lisec_tpu.config import apply_overrides as jax_apply_overrides
 from lisec_tpu.config import load_config as jax_load_config
 from lisec_tpu.data import fixtures as jax_fixtures
-from lisec_tpu.data.augment import augment_cloud as jax_augment_cloud
+from lisec_tpu.pipelines.rangeseg import RangeSegPipeline as JaxRangeSegPipeline
 from lisec_tpu.data.collate import make_batches as jax_make_batches
 from lisec_tpu.data.semantickitti import SemanticKitti as JaxSemanticKitti
 from lisec_tpu.models.rangeseg import RangeSegNet as JaxRangeSegNet
@@ -135,8 +135,9 @@ def test_dataset_and_batches_are_bit_identical(source, tmp_path):
         np.testing.assert_array_equal(
             pipe.make_dataset("val")[1]["points"],
             JaxSemanticKitti(jcfg, "val")[1]["points"])
-    # The port's rotation augmentation is augment_cloud's, bit for bit.
-    jaug = lambda s, r: jax_augment_cloud(s, r, jcfg.data.augment)  # noqa
+    # The batch stream is the JAX pipeline's, whose range segmenter
+    # augments nothing whatever data.augment says.
+    jaug = JaxRangeSegPipeline(jcfg).augment_fn("train")
     assert pipe.augment_fn("val") is None
     for a, w in zip(make_batches(got, cfg.budget, 2, seed=3, epochs=1,
                                  augment_fn=pipe.augment_fn("train")),
@@ -637,7 +638,7 @@ def test_rangeseg_is_registered_seed_initialised_and_needs_a_card():
     full = lisec_tpu_torch.build_model(lisec_tpu_torch.load_config(FULL),
                                        device="cpu")
     assert full.model.dtype == torch.bfloat16
-    assert full.augment_fn("train") is not None
+    assert full.augment_fn("train") is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             lisec_tpu_torch.build_model(cfg)
