@@ -27,7 +27,16 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    full width (the nine convs of a batch-8 predict; the submanifold ones
    with the inverse map the encoder hands them, the strided ones also on
    scratch filled with garbage) and on edge cases, bit for bit, and the
-   sparse conv's ``Function`` forward and backward;
+   sparse conv's ``Function`` forward and backward; ``threefry`` (the
+   dropout masks of the reference's threefry stream) bit-equal to its
+   plain version at part seg's (16, 2048, 128) and the classifiers'
+   (24 | 32, 512 | 256) mask shapes, an odd count, a slice whose flat
+   index crosses 2**32 and a rank's rows, each main-path shape timed
+   beside its plain version and ``torch.rand`` (``threefry_kernel``
+   lines); then ``init_state(0)`` of every shipped full-width config,
+   drawn on this card's host, held tensor for tensor to the SHA-256
+   digests in ``tests/goldens/torch_init_digests.json``, which the CPU
+   tests hold against the JAX package's draw (``init_digests`` lines);
 3. drive the inference path: full-width PointPillars inference
    (``configs/pointpillars_kitti.yaml``, bf16) with the trained snapshot
    ``weights/pointpillars_fixture_hard.npz`` on 8 ray-cast scenes, with
@@ -73,8 +82,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    ``infer`` at batch 16 and 1 (2 FPS and 4 gather launches each,
    nothing else), the kernel route against the plain route;
    ``pointnet2_partseg_tiny`` on the card against the CPU; train steps
-   at batch 16 (Adam, step schedule, augmentation; 3 scatter launches a
-   step) held against the plain route with dropout made the identity, a
+   at batch 16 (Adam, step schedule, augmentation; 3 scatter launches
+   and 1 ``threefry`` a step) held against the plain route with dropout
+   made the identity, a
    short ``train(cfg)``; the predict by
    stage, the train step by part, every point-kernel call (FPS beside its
    round floor: its block reductions and barriers alone);
@@ -103,14 +113,19 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    schedule, augmentation) whose first step's loss and gradients, in f32
    and in f64, are held against the same step on the CPU in f64
    (dropout the identity), a short
-   ``train(cfg)``; PointNet++ (``configs/pointnet2_modelnet40.yaml``:
+   ``train(cfg)`` (2 ``threefry`` launches a step, the head's masks);
+   PointNet++ (``configs/pointnet2_modelnet40.yaml``:
    SSG, batch 24, augmentation with point dropout) with ``fps`` and
    ``gather_rows`` bit-equal to their plain versions on every call of
    batch-24 predicts of fixture clouds, masked tails and a ties-heavy
    cloud, predict at batch 24 and 1 (2 ``fps`` and 2 ``gather_rows``
    launches, nothing else) against the plain route, train steps (1
-   ``scatter_rows`` a step, checked bit-equal) against the plain route,
-   a short ``train(cfg)``;
+   ``scatter_rows`` and 2 ``threefry`` a step, checked bit-equal)
+   against the plain route, a short ``train(cfg)``; then two train steps
+   each of full-width part seg and PointNet++ cls with the counts set to
+   0 just before and read just after (1 and 2 ``threefry`` launches a
+   step), every mask the kernel drew equal to the plain version's on the
+   same key, shape and offset (``stream_train_steps`` lines);
 10. ``evaluate``: the trained PointPillars snapshot in
    ``configs/pointpillars_fixture_hard_conv.yaml`` through
    ``lisec_tpu_torch.evaluate`` over the whole 256-frame held-out split,
@@ -221,7 +236,7 @@ WEIGHTS = os.path.join(ROOT, "weights", "pointpillars_fixture_hard.npz")
 SECOND_CFG = os.path.join(ROOT, "configs", "second_kitti.yaml")
 SECOND_TRAIN_CFG = os.path.join(ROOT, "configs", "second_fixture_conv.yaml")
 KERNEL_SOURCES = ("encoder_kernel", "segment_paint", "segment_unpaint",
-                  "spread_accumulate", "fps", "gather_rows")
+                  "spread_accumulate", "fps", "gather_rows", "threefry")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 
@@ -1814,7 +1829,8 @@ def phase_second_serving(pipe, cfg):
 # nothing else.
 SUBM_LAUNCHES_PER_BUILD = {"pillar_canvas_fused": 0, "segment_paint": 1,
                            "segment_unpaint": 0, "spread_accumulate": 0,
-                           "fps": 0, "gather_rows": 0, "scatter_rows": 0}
+                           "fps": 0, "gather_rows": 0, "scatter_rows": 0,
+                           "threefry": 0}
 
 
 def subm_level0(pipe, cfg, b=8):
@@ -2058,16 +2074,19 @@ PARTSEG_SCATTER_SHAPES = ((8192, 128, 512), (1536, 256, 128),
                           (6144, 128, 512))
 PARTSEG_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 0, "segment_unpaint": 0,
-    "spread_accumulate": 0, "fps": 2, "gather_rows": 4, "scatter_rows": 0}
+    "spread_accumulate": 0, "fps": 2, "gather_rows": 4, "scatter_rows": 0,
+    "threefry": 0}
+# A train step adds the gathers' backward and the head's dropout mask.
 PARTSEG_LAUNCHES_PER_TRAIN_STEP = {**PARTSEG_LAUNCHES_PER_PREDICT,
-                                   "scatter_rows": 3}
+                                   "scatter_rows": 3, "threefry": 1}
 
 
 def point_launches():
     from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    from lisec_tpu_torch.ops.cuda import threefry as tf
     return {"fps": fk.LAUNCHES, "gather_rows": gr.GATHER_LAUNCHES,
-            "scatter_rows": gr.SCATTER_LAUNCHES}
+            "scatter_rows": gr.SCATTER_LAUNCHES, "threefry": tf.LAUNCHES}
 
 
 def all_launches():
@@ -2080,8 +2099,9 @@ def zero_all_launches():
     from lisec_tpu_torch.ops.cuda import encoder_kernel as ek
     from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    from lisec_tpu_torch.ops.cuda import threefry as tf
     zero_segment_launches()
-    ek.LAUNCHES = fk.LAUNCHES = 0
+    ek.LAUNCHES = fk.LAUNCHES = tf.LAUNCHES = 0
     gr.GATHER_LAUNCHES = gr.SCATTER_LAUNCHES = 0
 
 
@@ -2818,7 +2838,7 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
             pipe.optimizer.zero_grad()
             ev[0].record()
             logits = pipe.model(*pipe._model_args(dev),
-                                generator=pipe.dropout_generator)
+                                rng=pipe.step_key())
             ev[1].record()
             loss = cross_entropy(logits, dev["point_labels"],
                                  mask=dev["point_mask"])
@@ -2855,7 +2875,8 @@ RANGESEG_CFG = os.path.join(ROOT, "configs", "rangeseg_fixture_conv.yaml")
 RANGESEG_TINY_CFG = os.path.join(ROOT, "configs", "rangeseg_tiny.yaml")
 RANGESEG_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 1, "segment_unpaint": 0,
-    "spread_accumulate": 1, "fps": 0, "gather_rows": 0, "scatter_rows": 0}
+    "spread_accumulate": 1, "fps": 0, "gather_rows": 0, "scatter_rows": 0,
+    "threefry": 0}
 RANGESEG_LAUNCHES_PER_TRAIN_STEP = {**RANGESEG_LAUNCHES_PER_PREDICT,
                                     "spread_accumulate": 0}
 # Points a cloud: the fixture's, and about one HDL-64E scan.
@@ -3330,13 +3351,16 @@ POINTNET_CLS_TINY_CFG = os.path.join(ROOT, "configs",
 POINTNET2_CLS_CFG = os.path.join(ROOT, "configs", "pointnet2_modelnet40.yaml")
 NO_LAUNCHES = {"pillar_canvas_fused": 0, "segment_paint": 0,
                "segment_unpaint": 0, "spread_accumulate": 0, "fps": 0,
-               "gather_rows": 0, "scatter_rows": 0}
+               "gather_rows": 0, "scatter_rows": 0, "threefry": 0}
+# A PointNet train step: its head's two dropout masks, nothing else.
+POINTNET_LAUNCHES_PER_TRAIN_STEP = {**NO_LAUNCHES, "threefry": 2}
 # A PointNet2Cls predict: each set abstraction's FPS and grouping (SA1's
 # on xyz alone); no feature propagation, so no other gather. A train step
 # adds SA2's grouping backward into SA1's features (xyz takes no
 # gradient, so SA1's grouping has no backward).
 CLS_LAUNCHES_PER_PREDICT = {**NO_LAUNCHES, "fps": 2, "gather_rows": 2}
-CLS_LAUNCHES_PER_TRAIN_STEP = {**CLS_LAUNCHES_PER_PREDICT, "scatter_rows": 1}
+CLS_LAUNCHES_PER_TRAIN_STEP = {**CLS_LAUNCHES_PER_PREDICT, "scatter_rows": 1,
+                               "threefry": 2}
 # PointNet's first f32 step on the card against the exact (f64) step: every
 # gradient within this fraction of its L2 norm. On the H100 the card's
 # read at most 1.2e-3 and the CPU's own f32 step up to 5.4e-3 of it
@@ -3507,7 +3531,8 @@ def phase_pointnet_cls():
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          logits_max_abs_diff=diff, logits_max_abs=scale, labels_equal=True)
 
-    first, start, _ = cls_train_steps(name, pipe, cfg, NO_LAUNCHES)
+    first, start, _ = cls_train_steps(name, pipe, cfg,
+                                      POINTNET_LAUNCHES_PER_TRAIN_STEP)
     # The first step against the exact one (the CPU's in f64): in f64 the
     # loss within 1e-5 relative and every gradient within 1e-3 of its L2
     # norm; in f32 the loss within 1e-5 of the CPU's f32 loss, every
@@ -3905,7 +3930,7 @@ def cls_train_parts(pipe, batch):
             pipe.optimizer.zero_grad()
             ev[0].record()
             out = pipe.model(dev["points"], dev["point_mask"],
-                             generator=pipe.dropout_generator)
+                             rng=pipe.step_key())
             ev[1].record()
             loss = cross_entropy(out["logits"], dev["label"])
             if out["feature_transform"] is not None:
@@ -3961,6 +3986,7 @@ def phase_cls_timing(runs):
     # kernels.
     _, pipe, cfg, first = runs[1]
     dev = pipe.device_batch(partseg_batch(pipe, cfg, cfg.train.batch_size))
+    pipe.model.eval()                  # the train steps above left train()
     rows = point_kernel_rows(lambda: pipe.predict(dev),
                              lambda: cls_loss_and_grads(pipe, first))
     for kernel, per_call in zip(("fps", "gather_rows", "scatter_rows"), rows):
@@ -4143,10 +4169,10 @@ def phase_configs_as_written(tmp):
     killed_dir = os.path.join(tmp, "resume_killed")
     train_step = Pipeline.train_step
 
-    def dies_after_the_save(self, batch):
+    def dies_after_the_save(self, batch, rng=None):
         if self.step == RESUME_STEPS // 2:
             raise Preempted
-        return train_step(self, batch)
+        return train_step(self, batch, rng)
     Pipeline.train_step = dies_after_the_save
     try:
         train_quiet(as_written(TRAIN_CFG, killed_dir, RESUME_STEPS,
@@ -4290,7 +4316,8 @@ BENCH_OVERRIDES = ("data.fixture=true", "data.fixture_size=8",
                    "data.augment.enabled=false", "train.ckpt_dir=")
 VOXEL_BUFFER_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 1, "segment_unpaint": 0,
-    "spread_accumulate": 0, "fps": 0, "gather_rows": 0, "scatter_rows": 0}
+    "spread_accumulate": 0, "fps": 0, "gather_rows": 0, "scatter_rows": 0,
+    "threefry": 0}
 # The voxelizer's paint and the assigner's; no unpaint (autograd's gather
 # is the scatter's backward).
 VOXEL_BUFFER_LAUNCHES_PER_TRAIN_STEP = {
@@ -4501,20 +4528,38 @@ def phase_three_class():
             or not bool(((labels >= 0) & (labels < 3)).all())):
         raise AssertionError("3-class predict: anchors, boxes or labels")
     # Seed weights keep nothing at the config's threshold; at 0 every
-    # candidate goes through the three classes' NMS.
+    # candidate goes through NMS, and the kept boxes hold two of the
+    # classes (the seed's draw scores the third under them everywhere).
+    # Then each class in turn is the only one that can win an anchor
+    # (the others' biases at -1e4): its boxes are kept, with its label.
     pipe.score_thr = 0.0
     all_kept = infer(pipe, batch)
     kept_labels = all_kept["labels"][all_kept["valid"]]
     per_class = torch.bincount(kept_labels.long(), minlength=3).tolist()
-    if len(per_class) != 3 or min(per_class) == 0:
+    if len(per_class) != 3 or sum(n > 0 for n in per_class) < 2:
         raise AssertionError(f"3-class predict at threshold 0: labels "
                              f"{per_class}")
+    bias = pipe.model.head.cls.bias
+    prior = bias.detach().clone()
+    alone = []
+    for k in range(3):
+        with torch.no_grad():
+            bias.copy_(prior)
+            bias.view(-1, 3)[:, [c for c in range(3) if c != k]] = -1e4
+        kept = infer(pipe, batch)
+        labels_k = kept["labels"][kept["valid"]]
+        if labels_k.numel() == 0 or not bool((labels_k == k).all()):
+            raise AssertionError(f"3-class predict, class {k} alone: "
+                                 f"labels {labels_k.tolist()[:10]}")
+        alone.append(int(labels_k.numel()))
+    with torch.no_grad():
+        bias.copy_(prior)
     emit("three_class_predict", config="pointpillars_kitti_3class", batch=8,
          launches=launches, anchors=list(pipe.anchors.shape),
          kept_per_cloud=out["valid"].sum(1).tolist(),
          labels_kept=torch.bincount(labels.long(), minlength=3).tolist(),
          kept_per_cloud_threshold_0=all_kept["valid"].sum(1).tolist(),
-         labels_kept_threshold_0=per_class)
+         labels_kept_threshold_0=per_class, kept_each_class_alone=alone)
     return launches["pillar_canvas_fused"]
 
 
@@ -4662,7 +4707,8 @@ DEVICE_LAUNCHES = {
 def phase_device_times():
     """The kernels' own time on the card (``device_ms``) of every timed
     ``pillar_canvas_fused``, ``fps``, ``segment_paint``, ``scatter_rows``,
-    ``gather_rows``, ``spread_accumulate`` and unpaint-source call (and of
+    ``gather_rows``, ``spread_accumulate``, ``threefry`` and unpaint-source
+    call (and of
     the ``torch.gather`` beside the plain C = 4 gather), and what it
     launched (``device_parts``), filled into its row; a row that names its
     launches (``expect_launches``) must have launched just those."""
@@ -4694,7 +4740,7 @@ def phase_device_times():
                                        "samples", "rows",
                                        "vals", "src", "ids", "table_rows",
                                        "num_rows", "num_out", "num_max",
-                                       "split", "dtype")
+                                       "split", "dtype", "shape")
                    if k in row},
              ms=row["ms"], device_ms=row["device_ms"],
              device_parts=row["device_parts"],
@@ -5421,6 +5467,195 @@ def nccl_main(out_dir) -> int:
     return 0
 
 
+# -- the reference's random streams -------------------------------------------
+
+INT_OPS_PER_S = 33.5e12          # F32_FLOPS / 2: one simple instruction a lane
+# The threefry kernel's checks: (case, global mask shape, the rows this
+# call draws from its first flat index on (None: all of them)).
+THREEFRY_CASES = (
+    ("partseg_head", (16, 2048, 128), None),
+    ("pointnet2_cls_hidden_0", (24, 512), None),
+    ("pointnet2_cls_hidden_1", (24, 256), None),
+    ("pointnet_cls_hidden_0", (32, 512), None),
+    ("pointnet_cls_hidden_1", (32, 256), None),
+    ("odd_count", (7, 13), None),
+    ("index_past_2_32", (2 ** 32 // 5 + 2, 5), slice(2 ** 32 // 5 - 1,
+                                                     2 ** 32 // 5 + 2)),
+    ("rank_rows", (16, 2048, 128), slice(8, 16)),
+)
+# Dropout layers a train step draws a mask for, on the card.
+THREEFRY_PER_TRAIN_STEP = {"pointnet2_partseg_fixture_conv": 1,
+                           "pointnet2_modelnet40": 2,
+                           "pointnet_cls_fixture_conv": 2}
+STREAM_TRAIN_STEPS = 2
+
+
+def threefry_bound_ms(count: int) -> float:
+    from lisec_tpu_torch.ops.cuda import threefry as tf
+    return 1e3 * max(count * tf.INT_OPS_PER_ELEMENT / INT_OPS_PER_S,
+                     count / HBM_BYTES_PER_S)
+
+
+def phase_threefry_kernel_check():
+    """``threefry`` bit-equal to its plain version on the card at part
+    seg's and the classifiers' mask shapes, an odd count, a slice whose
+    flat index crosses 2**32 and a rank's rows (also equal to those rows
+    of the whole mask); each main-path shape timed beside its plain
+    version and ``torch.rand`` of the shape (no PyTorch call computes
+    threefry; the kernel's own time from ``phase_device_times``). The
+    checks' launches do not count. Returns the rows."""
+    import math
+    import torch
+    from lisec_tpu_torch.models.common import dropout_key
+    from lisec_tpu_torch.ops.cuda import threefry as tf
+    from lisec_tpu_torch.training.loop import step_key
+    key = dropout_key(step_key(0, 5), ("Dropout_0",))
+    rows = {}
+    for case, shape, part in THREEFRY_CASES:
+        first = 0 if part is None else part.start
+        local = shape if part is None else (part.stop - part.start,
+                                            *shape[1:])
+        offset = first * math.prod(shape[1:])
+        got = tf.bernoulli_mask(key, 0.6, local, offset, "cuda")
+        want = tf.bernoulli_mask_reference(key, 0.6, local, offset, "cuda")
+        torch.cuda.synchronize()
+        if got.dtype != torch.bool or not torch.equal(got, want):
+            raise AssertionError(f"threefry {case}: differs from the plain "
+                                 "version")
+        if case == "rank_rows" and not torch.equal(
+                got, tf.bernoulli_mask(key, 0.6, shape, 0, "cuda")[part]):
+            raise AssertionError("threefry rank_rows: not the rows of the "
+                                 "whole mask")
+        share = float(got.float().mean())
+        emit("kernel_check", kernel="threefry", case=case,
+             shape=list(local), offset=offset, max_abs_err=0.0,
+             bit_equal=True, keep_share=share)
+        if part is not None or case == "odd_count":
+            continue
+        count = math.prod(shape)
+
+        def call(shape=shape):
+            return tf.bernoulli_mask(key, 0.6, shape, 0, "cuda")
+        rows[case] = {
+            "shape": list(shape), "elements": count,
+            "ms": cuda_ms(call, iters=50),
+            "plain_ms": cuda_ms(lambda: tf.bernoulli_mask_reference(
+                key, 0.6, shape, 0, "cuda"), iters=5),
+            "bound_ms": threefry_bound_ms(count), "bound_by": "operations"
+            if count * tf.INT_OPS_PER_ELEMENT / INT_OPS_PER_S
+            > count / HBM_BYTES_PER_S else "bytes",
+            "library_ms": None,
+            "torch_rand_ms": cuda_ms(
+                lambda: torch.rand(shape, device="cuda"), iters=50),
+            "expect_launches": {"bernoulli_mask_kernel": 1}}
+        emit("threefry_kernel", case=case, **rows[case])
+        # Its time on the card comes from a trace at the end of the run
+        # (phase_device_times), after every timed phase.
+        DEVICE_TIMED.append(("threefry", rows[case], call))
+    tf.LAUNCHES = 0
+    return rows
+
+
+def phase_init_digests():
+    """``init_state(0)`` of every shipped full-width config, drawn on
+    this card's host, equal tensor for tensor (SHA-256) to
+    ``tests/goldens/torch_init_digests.json``, which the CPU tests hold
+    against the JAX package's draw. No kernel runs."""
+    import torch
+    from lisec_tpu_torch.api import build_model, load_config
+    from lisec_tpu_torch.weights import state_digests
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "torch_init_digests.json")) as f:
+        golden = json.load(f)
+    t_phase = time.perf_counter()
+    for name, want in golden.items():
+        pipe = build_model(load_config(
+            os.path.join(ROOT, "configs", f"{name}.yaml")))
+        zero_all_launches()
+        t0 = time.perf_counter()
+        pipe.init_state(0)
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+        got = state_digests(pipe.model)
+        wrong = sorted(k for k in want if got.get(k) != want[k])
+        if set(got) != set(want) or wrong:
+            raise AssertionError(f"{name}: init_state(0) differs from the "
+                                 f"committed digests in {wrong[:5]}")
+        if any(launches.values()):
+            raise AssertionError(f"{name}: init_state launched {launches}")
+        emit("init_digests", config=name, tensors=len(got), equal=True,
+             params=sum(p.numel() for p in pipe.model.parameters()),
+             init_state_s=seconds)
+        del pipe
+        torch.cuda.empty_cache()
+    emit("init_digests_wall", configs=len(golden),
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_stream_train_steps():
+    """``STREAM_TRAIN_STEPS`` train steps each of full-width part seg
+    (batch 16) and PointNet++ cls (batch 24) on the card, the counts set
+    to 0 just before and read just after (``THREEFRY_PER_TRAIN_STEP``
+    ``threefry`` launches a step, each keyed by the step): every mask the
+    kernel drew equal to the plain version's on the same key, shape and
+    offset, and a finite loss. Returns the launches by config."""
+    import math
+    import torch
+    import lisec_tpu_torch.models.common as common
+    from lisec_tpu_torch.api import build_model
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    from lisec_tpu_torch.data.collate import make_batches
+    from lisec_tpu_torch.ops.cuda import threefry as tf
+    drawn = []
+    kernel = common.bernoulli_mask
+
+    def recording(key, keep_prob, shape, offset=0, device="cuda"):
+        mask = kernel(key, keep_prob, shape, offset, device)
+        drawn.append((key, keep_prob, tuple(shape), offset, mask))
+        return mask
+    out = {}
+    for name, cfg in (
+            ("pointnet2_partseg_fixture_conv", apply_overrides(
+                load_config(PARTSEG_CFG), ['train.ckpt_dir=""'])),
+            ("pointnet2_modelnet40", cls_config(POINTNET2_CLS_CFG))):
+        pipe = build_model(cfg)
+        pipe.init_state(cfg.train.seed)
+        batches = make_batches(pipe.make_dataset("train"), cfg.budget,
+                               cfg.train.batch_size, shuffle=True,
+                               seed=cfg.train.seed,
+                               augment_fn=pipe.augment_fn("train"))
+        steps = [next(batches) for _ in range(STREAM_TRAIN_STEPS)]
+        drawn.clear()
+        common.bernoulli_mask = recording
+        try:
+            zero_all_launches()
+            with torch.enable_grad():
+                auxes = [pipe.train_step(b) for b in steps]
+            torch.cuda.synchronize()
+            launches = all_launches()
+        finally:
+            common.bernoulli_mask = kernel
+        want = THREEFRY_PER_TRAIN_STEP[name] * STREAM_TRAIN_STEPS
+        if launches["threefry"] != want or len(drawn) != want:
+            raise AssertionError(f"{name}: {launches['threefry']} threefry "
+                                 f"launches in {STREAM_TRAIN_STEPS} steps, "
+                                 f"expected {want}")
+        for key, keep, shape, offset, mask in drawn:
+            if not torch.equal(mask, tf.bernoulli_mask_reference(
+                    key, keep, shape, offset, mask.device)):
+                raise AssertionError(f"{name}: a train step's mask differs "
+                                     "from the plain version's")
+        losses = [float(a["loss"]) for a in auxes]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        emit("stream_train_steps", config=name, steps=STREAM_TRAIN_STEPS,
+             launches=launches, masks=[list(d[2]) for d in drawn],
+             masks_equal_plain=True, loss=losses)
+        out[name] = launches
+        del pipe
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5436,6 +5671,7 @@ def main() -> int:
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    from lisec_tpu_torch.ops.cuda import threefry as tf
     from lisec_tpu_torch.weights import load_weights_npz
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5446,6 +5682,8 @@ def main() -> int:
 
     phase_build()
     phase_kernel_check(gen)
+    threefry_rows = phase_threefry_kernel_check()
+    phase_init_digests()
     seg_err = phase_segment_kernel_check(gen)
     second_cfg = load_config(SECOND_CFG)
     second_pipe = build_model(second_cfg)          # weights from seed 0
@@ -5493,6 +5731,7 @@ def main() -> int:
     pn_pipe, pn_cfg, pn_first = phase_pointnet_cls()
     (pn2_pipe, pn2_cfg, pn2_first, cls_predict_launches,
      cls_train_launches, cls_err) = phase_pointnet2_cls()
+    stream_launches = phase_stream_train_steps()
     phase_evaluate(partseg_pipe, rangeseg_pipe, pn_pipe, pn2_pipe)
     cls_rows = phase_cls_timing((
         ("pointnet_cls_fixture_conv", pn_pipe, pn_cfg, pn_first),
@@ -5651,6 +5890,23 @@ def main() -> int:
                     gather_points_row["max_abs_err"],
                 "gather_points": gather_points_row}
                if info is gr.GATHER_INFO else {})})
+    # threefry: the part-seg head's mask (16, 2048, 128) timed; the
+    # classifiers' hidden layers' beside it. Its launches are those of
+    # the train steps of phase_stream_train_steps.
+    head = threefry_rows["partseg_head"]
+    kernels.append({
+        **tf.KERNEL_INFO,
+        "launches": sum(v["threefry"] for v in stream_launches.values()),
+        "launches_by_config": {k: v["threefry"]
+                               for k, v in stream_launches.items()},
+        "max_abs_err": 0.0,
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_ms", "device_parts",
+                                "torch_rand_ms", "shape")},
+        "launches_per_train_step": THREEFRY_PER_TRAIN_STEP,
+        "launches_per_predict": 0,
+        "cls_calls": {k: v for k, v in threefry_rows.items()
+                      if k != "partseg_head"}})
     for k in kernels:
         k["launches_under_dp_rank_0"] = under_dp[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,8 @@ the gt boxes' difficulty, and ``--reference-weights`` the same split for
 a snapshot npz (the JAX package's, say) through the same evaluator.
 ``--init-weights`` starts the run from a snapshot in place of the
 seed's draw (``python -m tests.make_jax_init_weights`` writes the JAX
-package's initial weights). ``--save-weights`` writes the trained model with
+package's initial weights; the seed's draw is already the JAX
+package's, so a run need not start from them to match the reference). ``--save-weights`` writes the trained model with
 ``bench_lib.save_weights_npz`` (a file the JAX package's
 ``load_weights_npz`` reads). Overrides after the config are for trying
 the script on small configs; a convergence run sets none.

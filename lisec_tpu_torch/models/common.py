@@ -1,7 +1,8 @@
 """Shared NN blocks (port of ``lisec_tpu/models/common.py``): the
 detectors' and the range segmenter's NCHW ``ConvBNRelu`` and ``Conv``,
 and the point networks' ``SharedMLP``, ``MLPHead``, ``dropout`` and
-``masked_max`` over channels-last rows.
+``masked_max`` over channels-last rows; ``reset_parameters``, the JAX
+package's initial draw.
 
 Parameters are stored in PyTorch's layouts; ``lisec_tpu_torch/weights.py``
 converts the flax ones. ``dtype`` is the compute dtype: inputs and
@@ -10,13 +11,18 @@ kernels are cast to it per layer, as flax does, and parameters stay f32.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+import re
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lisec_tpu_torch.ops.cuda.threefry import bernoulli_mask
 from lisec_tpu_torch.parallel.mesh import current_mesh, global_mean
+from lisec_tpu_torch.utils import prng
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
@@ -85,21 +91,68 @@ def batch_norm(xf: torch.Tensor, layer: nn.Module, channel_dim: int, *,
     return (xf - mean.view(shape)) * mul.view(shape) + layer.bias.view(shape)
 
 
-@torch.no_grad()
-def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Fresh weights: every kernel normal with its
-    module's ``weight_std()`` (flax's initializers without their
-    truncation), drawn on the CPU from ``generator`` in parameter order;
-    BN scales 1, every bias 0, running statistics (0, 1)."""
-    for name, p in model.named_parameters():
-        module, leaf = name.rsplit(".", 1)
-        if p.dim() < 2:
-            p.fill_(1.0 if leaf == "scale" else 0.0)
+# The order in which a flax module calls ``self.param`` for its leaves:
+# flax keys the initializer of a module's n-th param with counter n.
+_PARAM_ORDER = ("kernel", "scale", "bias")
+
+
+def flax_initializer(model, key: str) -> prng.Initializer:
+    """The flax initializer of the parameter at flat flax key ``key``
+    (``params/<module path>/<leaf>``) of a model or model class: the
+    first of its ``FLAX_INITS`` (pairs of a key regex and an
+    initializer) that matches, else flax's defaults, ``lecun_normal``
+    for a kernel, zeros for a bias, ones for a BatchNorm scale."""
+    for pattern, init in getattr(model, "FLAX_INITS", ()):
+        if re.search(pattern, key):
+            return init
+    leaf = key.rsplit("/", 1)[1]
+    return {"kernel": prng.lecun_normal(), "bias": prng.zeros,
+            "scale": prng.ones}[leaf]
+
+
+@functools.lru_cache(maxsize=4)
+def _flax_draw(model_type: type, seed: int,
+               layout: Tuple[Tuple[str, Tuple[int, ...]], ...]
+               ) -> Dict[str, np.ndarray]:
+    """The flat flax arrays of ``reset_parameters`` for a model of
+    ``model_type`` whose flat flax keys and shapes are ``layout``. The
+    few latest draws are kept: a pipeline draws its seed's weights when
+    it is built and again in ``init_state``."""
+    root = prng.PRNGKey(seed)
+    leaves: Dict[Tuple[str, ...], list] = {}
+    for key, _ in layout:
+        col, *path, leaf = key.split("/")
+        if col == "params":
+            leaves.setdefault(tuple(path), []).append(leaf)
+    flat = {}
+    for key, shape in layout:
+        col, *path, leaf = key.split("/")
+        if col == "batch_stats":
+            flat[key] = np.full(shape, 1.0 if leaf == "var" else 0.0,
+                                np.float32)
             continue
-        std = model.get_submodule(module).weight_std()
-        p.copy_(torch.empty(p.shape).normal_(0.0, std, generator=generator))
-    for name, buf in model.named_buffers():
-        buf.fill_(1.0 if name.endswith("var") else 0.0)
+        order = sorted(leaves[tuple(path)], key=_PARAM_ORDER.index)
+        counter = order.index(leaf) + 1
+        flat[key] = flax_initializer(model_type, key)(
+            prng.fold_in_static(root, (*path, counter)), shape)
+    return flat
+
+
+@torch.no_grad()
+def reset_parameters(model: nn.Module, seed: int) -> None:
+    """The JAX package's initial weights from ``seed``: every parameter
+    drawn in its flax layout by its flax initializer (``flax_initializer``)
+    under the key flax gives it, ``fold_in_static(PRNGKey(seed), module
+    path + (n,))`` for the module's n-th ``self.param`` (kernel, then
+    BatchNorm scale, then bias), and carried into the model's layouts by
+    ``weights.convert_flax_arrays``; running statistics (0, 1). The draw
+    is in f32 on the host (``utils.prng``), the same on every host; an
+    f64 model takes it cast, as JAX's f32 parameters would be."""
+    from lisec_tpu_torch.weights import convert_flax_arrays, to_flax_arrays
+    layout = tuple((k, v.shape) for k, v in to_flax_arrays(model).items())
+    flat = _flax_draw(type(model), int(seed), layout)
+    model.load_state_dict(
+        convert_flax_arrays(flat, getattr(model, "FLAX_KEYS", None)))
 
 
 class ConvBNRelu(nn.Module):
@@ -138,13 +191,6 @@ class ConvBNRelu(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         return torch.relu(batch_norm(xf, self, 1).to(self.dtype))
 
-    def weight_std(self) -> float:
-        """flax's lecun-normal: variance 1 / fan_in."""
-        w = self.weight
-        fan_in = (w.shape[0] * w.shape[2] * w.shape[3] if self.transpose
-                  else w[0].numel())
-        return fan_in ** -0.5
-
 
 class Conv(nn.Module):
     """flax's ``nn.Conv`` with a square kernel, stride 1 and ``SAME``
@@ -166,10 +212,6 @@ class Conv(nn.Module):
         bias = None if self.bias is None else self.bias.to(dtype)
         return F.conv2d(x, self.weight.to(dtype), bias)
 
-    def weight_std(self) -> float:
-        """flax's lecun-normal: variance 1 / fan_in."""
-        return self.weight[0].numel() ** -0.5
-
 
 # -- point networks (channels last) -------------------------------------------
 
@@ -180,10 +222,6 @@ POINT_BN_EPS = 1e-5
 class Dense(nn.Linear):
     """flax's ``nn.Dense``: ``x @ kernel (+ bias)``, its (in, out) kernel
     stored as ``nn.Linear``'s (out, in) weight."""
-
-    def weight_std(self) -> float:
-        """flax's lecun-normal: variance 1 / fan_in."""
-        return self.in_features ** -0.5
 
 
 class BatchNorm(nn.Module):
@@ -223,33 +261,48 @@ class SharedMLP(nn.Module):
         return x
 
 
-def dropout(h: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax's ``Dropout(rate)`` in training: keep with probability
-    1 - rate, scale by 1 / (1 - rate), the mask drawn from ``generator``
-    on ``h``'s device (torch cannot draw flax's bits). Under a data mesh
-    the mask is drawn for the global batch and this rank keeps its rows:
-    the masks of the single-device step, and the generator stays in step
-    on every rank."""
+def dropout(h: torch.Tensor, rate: float, key: Optional[np.ndarray]
+            ) -> torch.Tensor:
+    """flax's ``Dropout(rate)`` in training: ``h`` kept where
+    ``jax.random.bernoulli(key, 1 - rate, global shape)`` is true (the
+    ``threefry`` kernel on the card) and scaled by the f32 reciprocal of
+    1 - rate, as the JAX package's jitted train step computes ``x /
+    keep``; 0 elsewhere. ``key`` is the layer's, ``fold_in_static(step
+    key, flax path + (1,))``. Under a data mesh this rank draws only its
+    rows, from the flat index of its first: the single-device mask, as
+    the stream is partitionable."""
     if rate == 0.0:
         return h
+    if key is None:
+        raise ValueError("dropout in training needs the step's key")
     keep_prob = 1.0 - rate
     mesh = current_mesh()
-    keep = torch.rand((h.shape[0] * mesh.world, *h.shape[1:]),
-                      generator=generator, device=h.device) < keep_prob
-    keep = mesh.rows(keep)
-    return torch.where(keep, h / keep_prob, 0.0)
+    keep = bernoulli_mask(key, keep_prob, h.shape,
+                          offset=mesh.rank * h.numel(), device=h.device)
+    one = np.ones((), np.float64 if h.dtype == torch.float64
+                  else np.float32)
+    return torch.where(keep, h * float(one / one.dtype.type(keep_prob)),
+                       0.0)
+
+
+def dropout_key(rng: Optional[np.ndarray], path: Sequence[str]
+                ) -> Optional[np.ndarray]:
+    """The key flax's ``Dropout`` at module path ``path`` draws from under
+    the step key ``rng``: its first ``make_rng("dropout")``."""
+    return None if rng is None else prng.fold_in_static(rng, (*path, 1))
 
 
 class MLPHead(nn.Module):
     """FC head: per hidden width a Dense (without a bias, as BN follows,
     unless ``hidden_bias``), BatchNorm, ReLU and dropout (rate
-    ``dropout_rate``, in ``train()`` mode only, from the ``generator``
-    the caller passes), then a final Dense with a bias."""
+    ``dropout_rate``, in ``train()`` mode only, its k-th layer keyed as
+    flax's ``<flax_path>/Dropout_k`` under the step key the caller
+    passes), then a final Dense with a bias."""
 
     def __init__(self, in_features: int, features: Sequence[int],
                  out_dim: int, dropout_rate: float = 0.4,
-                 hidden_bias: bool = False):
+                 hidden_bias: bool = False,
+                 flax_path: Tuple[str, ...] = ("MLPHead_0",)):
         super().__init__()
         widths = [in_features, *features]
         self.dense = nn.ModuleList(
@@ -258,14 +311,15 @@ class MLPHead(nn.Module):
             + [Dense(widths[-1], out_dim)])
         self.bn = nn.ModuleList(BatchNorm(f) for f in features)
         self.dropout_rate = dropout_rate
+        self.flax_path = tuple(flax_path)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+    def forward(self, x: torch.Tensor, rng: Optional[np.ndarray] = None
                 ) -> torch.Tensor:
-        for dense, bn in zip(self.dense, self.bn):
+        for k, (dense, bn) in enumerate(zip(self.dense, self.bn)):
             x = torch.relu(bn(dense(x)))
             if self.training:
-                x = dropout(x, self.dropout_rate, generator)
+                x = dropout(x, self.dropout_rate, dropout_key(
+                    rng, (*self.flax_path, f"Dropout_{k}")))
         return self.dense[-1](x)
 
 

@@ -57,9 +57,6 @@ class FusedPillarEncoder(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def weight_std(self) -> float:
-        return self.kernel.shape[0] ** -0.5
-
     def folded_weights(self):
         """Inference BN folded into the PFN: (w (9, C), t (C,)) with
         relu(s * (feats @ kernel) + t') = relu(feats @ w + t)."""

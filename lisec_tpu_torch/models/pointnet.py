@@ -12,21 +12,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from lisec_tpu_torch.models.common import (
     Dense, MLPHead, SharedMLP, masked_max, reset_parameters)
 from lisec_tpu_torch.parallel.mesh import mean_share
-
-
-class _ZeroInitDense(Dense):
-    """A Dense that fresh weights leave at zero (flax's ``zeros``
-    initialiser): the T-Net's last layer, so that it starts as the
-    identity."""
-
-    def weight_std(self) -> float:
-        return 0.0
+from lisec_tpu_torch.utils import prng
 
 
 class TNet(nn.Module):
@@ -39,7 +32,7 @@ class TNet(nn.Module):
         self.k = k
         self.mlps = nn.ModuleList([SharedMLP(k, (64, 128, 1024)),
                                    SharedMLP(1024, (512, 256))])
-        self.out = _ZeroInitDense(256, k * k)
+        self.out = Dense(256, k * k)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         g = masked_max(self.mlps[0](x), mask, dim=1)          # (B, 1024)
@@ -52,11 +45,14 @@ class PointNetCls(nn.Module):
     """PointNet classification network. The T-Nets present are
     ``tnets`` in order (input, then feature), as flax numbers them.
 
-    Dropout acts in ``train()`` mode only, its masks drawn from the
-    ``generator`` the caller passes (the pipeline owns one, seeded from
-    ``train.seed``)."""
+    Dropout acts in ``train()`` mode only, its masks drawn under the
+    step key the caller passes (``models.common.dropout``)."""
 
     FLAX_KEYS = "pointnet_cls"  # its key map in ``weights.py``
+    # flax's initializers that are not its defaults
+    # (``models.common.reset_parameters``): each T-Net's last Dense is
+    # zero, so that it starts as the identity.
+    FLAX_INITS = ((r"^params/TNet_\d+/Dense_0/(kernel|bias)$", prng.zeros),)
 
     def __init__(self, num_classes: int = 40, use_input_tnet: bool = True,
                  use_feature_tnet: bool = True, dropout_rate: float = 0.4):
@@ -70,11 +66,12 @@ class PointNetCls(nn.Module):
                                    SharedMLP(64, (64, 128, 1024))])
         self.head = MLPHead(1024, (512, 256), num_classes, dropout_rate)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        reset_parameters(self, generator)
+    def reset_parameters(self, seed: int) -> None:
+        """The JAX package's initial weights from ``seed``
+        (``models.common.reset_parameters``)."""
+        reset_parameters(self, seed)
 
-    def forward(self, points, point_mask,
-                generator: Optional[torch.Generator] = None):
+    def forward(self, points, point_mask, rng: Optional[np.ndarray] = None):
         """points (B, N, 3), point_mask (B, N) -> {'logits' (B, classes),
         'feature_transform' (B, 64, 64) or None}."""
         tnets = iter(self.tnets)
@@ -87,7 +84,7 @@ class PointNetCls(nn.Module):
             ft = next(tnets)(x, point_mask)
             x = torch.matmul(x, ft)
         g = masked_max(self.mlps[1](x), point_mask, dim=1)    # (B, 1024)
-        return {"logits": self.head(g, generator), "feature_transform": ft}
+        return {"logits": self.head(g, rng), "feature_transform": ft}
 
 
 def orthogonality_loss(transform: Optional[torch.Tensor]) -> torch.Tensor:

@@ -17,11 +17,12 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from lisec_tpu_torch.models.common import (
-    BatchNorm, Dense, MLPHead, SharedMLP, dropout, masked_max,
+    BatchNorm, Dense, MLPHead, SharedMLP, dropout, dropout_key, masked_max,
     reset_parameters)
 from lisec_tpu_torch.ops.ball_query import ball_query
 from lisec_tpu_torch.ops.cuda import fps as fps_kernel
@@ -94,9 +95,8 @@ class PointNet2PartSeg(nn.Module):
     extra point channels have no caller).
 
     Dropout (rate ``dropout_rate``, 0.4) acts in ``train()`` mode only,
-    as flax's does: keep with probability 1 - rate, scale by
-    1 / (1 - rate), the mask drawn from the ``generator`` the caller
-    passes (the pipeline owns one, seeded from ``train.seed``)."""
+    as flax's ``Dropout_0`` does, its mask drawn under the step key the
+    caller passes (``models.common.dropout``)."""
 
     def __init__(self, num_parts: int = 50, num_categories: int = 16,
                  width: int = 1, msg: bool = False):
@@ -129,17 +129,21 @@ class PointNet2PartSeg(nn.Module):
         self.head_out = Dense(128 * w, num_parts)
         self.dropout_rate = 0.4
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        reset_parameters(self, generator)
+    def reset_parameters(self, seed: int) -> None:
+        """The JAX package's initial weights from ``seed``
+        (``models.common.reset_parameters``)."""
+        reset_parameters(self, seed)
 
-    def dropout(self, h: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+    def dropout(self, h: torch.Tensor, rng: Optional[np.ndarray]
+                ) -> torch.Tensor:
+        """flax's ``Dropout_0`` under the step key ``rng``, in
+        ``train()`` mode only."""
         if not self.training:
             return h
-        return dropout(h, self.dropout_rate, generator)
+        return dropout(h, self.dropout_rate, dropout_key(rng, ("Dropout_0",)))
 
     def forward(self, points, point_mask, category_onehot,
-                generator: Optional[torch.Generator] = None):
+                rng: Optional[np.ndarray] = None):
         """points (B, N, 3), point_mask (B, N), category_onehot
         (B, num_categories) -> per-point logits (B, N, num_parts)."""
         xyz = points
@@ -158,7 +162,7 @@ class PointNet2PartSeg(nn.Module):
         f0 = self.fp[1](xyz, xyz1, torch.cat([cat, xyz], dim=-1), f1u, m1)
 
         h = torch.relu(self.head_bn(self.head_dense(f0)))
-        return self.head_out(self.dropout(h, generator))
+        return self.head_out(self.dropout(h, rng))
 
 
 class PointNet2Cls(nn.Module):
@@ -167,7 +171,8 @@ class PointNet2Cls(nn.Module):
     radius 0.2, 32 neighbours; 128, 0.4, 64), the global one, and the
     head Dense(512 w)-BN-ReLU-dropout, Dense(256 w)-BN-ReLU-dropout,
     Dense(classes), its hidden Dense layers with a bias as in the JAX
-    network. Dropout (0.4) as in :class:`PointNet2PartSeg`."""
+    network. Dropout (0.4) as in :class:`PointNet2PartSeg`, its layers
+    flax's top-level ``Dropout_0`` and ``Dropout_1``."""
 
     FLAX_KEYS = "pointnet2_cls"  # its key map in ``weights.py``
 
@@ -182,17 +187,18 @@ class PointNet2Cls(nn.Module):
         self.global_sa = GlobalSetAbstraction(
             sa2.out_features, (256 * w, 512 * w, 1024 * w))
         self.head = MLPHead(1024 * w, (512 * w, 256 * w), num_classes,
-                            dropout_rate=0.4, hidden_bias=True)
+                            dropout_rate=0.4, hidden_bias=True, flax_path=())
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        reset_parameters(self, generator)
+    def reset_parameters(self, seed: int) -> None:
+        """The JAX package's initial weights from ``seed``
+        (``models.common.reset_parameters``)."""
+        reset_parameters(self, seed)
 
-    def forward(self, points, point_mask,
-                generator: Optional[torch.Generator] = None):
+    def forward(self, points, point_mask, rng: Optional[np.ndarray] = None):
         """points (B, N, 3), point_mask (B, N) -> {'logits' (B, classes),
         'feature_transform': None}."""
         xyz1, f1, m1 = self.sa[0](points, None, point_mask)
         xyz2, f2, m2 = self.sa[1](xyz1, f1, m1)
         g = self.global_sa(xyz2, f2, m2)                       # (B, 1024 w)
-        return {"logits": self.head(g, generator),
+        return {"logits": self.head(g, rng),
                 "feature_transform": None}

@@ -25,9 +25,13 @@ from lisec_tpu_torch.models.common import (
     BatchNorm, ConvBNRelu, Dense, batch_norm, reset_parameters)
 from lisec_tpu_torch.models.pillar_encoder import FusedPillarEncoder
 from lisec_tpu_torch.ops.scatter import pillar_scatter
+from lisec_tpu_torch.utils import prng
 
-# Focal-loss prior: bias = -log((1 - pi) / pi) with pi = 0.01.
+# Focal-loss prior: bias = -log((1 - pi) / pi) with pi = 0.01, the
+# initial class bias of the anchor head (a ``FLAX_INITS`` entry).
 CLS_BIAS_INIT = -4.595
+FOCAL_PRIOR = (r"^params/AnchorHead_0/Conv_0/bias$",
+               prng.constant(CLS_BIAS_INIT))
 
 
 class PillarFeatureNet(nn.Module):
@@ -130,9 +134,6 @@ class Conv1x1(nn.Module):
         self.weight = nn.Parameter(torch.zeros(features, in_features, 1, 1))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def weight_std(self) -> float:
-        return self.weight.shape[1] ** -0.5
-
 
 class AnchorHead(nn.Module):
     """1x1 conv head: class logits, box deltas, direction logits.
@@ -151,8 +152,6 @@ class AnchorHead(nn.Module):
         self.cls = Conv1x1(in_channels, a * num_classes)
         self.box = Conv1x1(in_channels, a * 7)
         self.dir = Conv1x1(in_channels, a * 2)
-        with torch.no_grad():
-            self.cls.bias.fill_(CLS_BIAS_INIT)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         b, _, h, w = x.shape
@@ -172,6 +171,10 @@ class PointPillarsFused(nn.Module):
     """Raw padded points (B, N, 4) + mask (B, N) in, per-anchor
     predictions out. ``train()`` / ``eval()`` select batch or running
     BatchNorm statistics in the encoder and every conv block."""
+
+    # flax's initializers that are not its defaults
+    # (``models.common.reset_parameters``).
+    FLAX_INITS = (FOCAL_PRIOR,)
 
     def __init__(self, num_classes: int, grid_size: Tuple[int, int, int],
                  voxel_size: Tuple[float, float],
@@ -204,12 +207,10 @@ class PointPillarsFused(nn.Module):
         x = canvas.view(b, ny, nx, c).permute(0, 3, 1, 2)
         return self.head(self.backbone(x))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Fresh weights (``models.common.reset_parameters``), the head's
-        class bias at the focal-loss prior."""
-        reset_parameters(self, generator)
-        self.head.cls.bias.fill_(CLS_BIAS_INIT)
+    def reset_parameters(self, seed: int) -> None:
+        """The JAX package's initial weights from ``seed``
+        (``models.common.reset_parameters``)."""
+        reset_parameters(self, seed)
 
 
 class PointPillars(nn.Module):
@@ -219,6 +220,10 @@ class PointPillars(nn.Module):
     num_voxels (B,))`` returns per-anchor predictions."""
 
     FLAX_KEYS = "pointpillars"
+
+    # flax's initializers that are not its defaults
+    # (``models.common.reset_parameters``).
+    FLAX_INITS = (FOCAL_PRIOR,)
 
     def __init__(self, num_classes: int, grid_size: Tuple[int, int, int],
                  voxel_size: Tuple[float, float],
@@ -249,9 +254,7 @@ class PointPillars(nn.Module):
         canvas = pillar_scatter(feats, coords, num_voxels, ny=ny, nx=nx)
         return self.head(self.backbone(canvas))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Fresh weights (``models.common.reset_parameters``), the head's
-        class bias at the focal-loss prior."""
-        reset_parameters(self, generator)
-        self.head.cls.bias.fill_(CLS_BIAS_INIT)
+    def reset_parameters(self, seed: int) -> None:
+        """The JAX package's initial weights from ``seed``
+        (``models.common.reset_parameters``)."""
+        reset_parameters(self, seed)

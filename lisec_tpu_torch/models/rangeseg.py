@@ -90,5 +90,7 @@ class RangeSegNet(nn.Module):
         return x.to(torch.promote_types(x.dtype, torch.float32)
                     ).permute(0, 2, 3, 1)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        reset_parameters(self, generator)
+    def reset_parameters(self, seed: int) -> None:
+        """The JAX package's initial weights from ``seed``
+        (``models.common.reset_parameters``)."""
+        reset_parameters(self, seed)

@@ -27,12 +27,13 @@ from torch import nn
 from lisec_tpu_torch.models.common import (
     BN_EPS, BN_MOMENTUM, batch_norm, reset_parameters)
 from lisec_tpu_torch.models.pointpillars import (
-    CLS_BIAS_INIT, AnchorHead, BEVBackbone)
+    FOCAL_PRIOR, AnchorHead, BEVBackbone)
 from lisec_tpu_torch.ops.scatter import segment_sum_dense
 from lisec_tpu_torch.ops.sparse_conv import (
     SparseConvSpec, build_footprint_coords, build_output_coords,
     build_scatter_rulebook, sparse_conv3d_spread, submanifold_sources)
 from lisec_tpu_torch.parallel.mesh import global_sum
+from lisec_tpu_torch.utils import prng
 
 
 NUM_OFFSETS = 27            # every sparse conv here has 3 x 3 x 3 taps
@@ -62,11 +63,6 @@ class SparseConv3D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.register_buffer("mean", torch.zeros(out_channels))
         self.register_buffer("var", torch.ones(out_channels))
-
-    def weight_std(self) -> float:
-        """flax's variance_scaling(2.0, "fan_in"): fan_in = K * Cin."""
-        k, cin, _ = self.weight.shape
-        return (2.0 / (k * cin)) ** 0.5
 
     def forward(self, feats: torch.Tensor, out_of: torch.Tensor,
                 valid: torch.Tensor,
@@ -100,9 +96,6 @@ class DenseConv3D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.register_buffer("mean", torch.zeros(out_channels))
         self.register_buffer("var", torch.ones(out_channels))
-
-    def weight_std(self) -> float:
-        return (2.0 / self.weight[0].numel()) ** 0.5
 
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         """x (B, Cin, nz, ny, nx), active (B, 1, nz', ny', nx') of the
@@ -282,6 +275,15 @@ class SECONDNet(nn.Module):
     ``voxelize_mean_batch``) or the (B, P, K, C) point table of
     ``voxelize_batch``, which goes through :func:`mean_vfe` here."""
 
+    # flax's initializers that are not its defaults
+    # (``models.common.reset_parameters``): the encoder's convs draw
+    # with variance 2 / fan_in, the head's class bias is the focal-loss
+    # prior.
+    FLAX_INITS = (
+        (r"^params/SparseMiddleEncoder_0/(SparseConv3D|Conv)_\d+/kernel$",
+         prng.variance_scaling(2.0, "fan_in", "truncated_normal")),
+        FOCAL_PRIOR)
+
     def __init__(self, num_classes: int, grid_size: Tuple[int, int, int],
                  num_anchors_per_cell: int, in_channels: int = 4,
                  level_budgets: Sequence[int] = (16000, 20480, 26624, 18432),
@@ -316,9 +318,7 @@ class SECONDNet(nn.Module):
         bev = self.encoder(voxels.to(self.dtype), coords, num_voxels)
         return self.head(self.backbone(bev))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Fresh weights (``models.common.reset_parameters``), the head's
-        class bias at the focal-loss prior."""
-        reset_parameters(self, generator)
-        self.head.cls.bias.fill_(CLS_BIAS_INIT)
+    def reset_parameters(self, seed: int) -> None:
+        """The JAX package's initial weights from ``seed``
+        (``models.common.reset_parameters``)."""
+        reset_parameters(self, seed)

@@ -18,7 +18,7 @@ rows on their ranks. At world 1 both are the single-device program.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from lisec_tpu_torch.data.wire import unpack_points_q16
 from lisec_tpu_torch.parallel.mesh import (
     all_gather, all_reduce_grads, global_metrics, make_mesh, shard_batch,
     use_mesh)
+from lisec_tpu_torch.training.loop import step_key
 from lisec_tpu_torch.training.optim import make_optimizer
 
 
@@ -59,7 +60,7 @@ def same_device(a, b) -> bool:
 
 class Pipeline:
     """Subclasses set ``self.model`` (an ``nn.Module`` on ``self.device``
-    with a ``reset_parameters(generator)``) in ``__init__`` and implement
+    with a ``reset_parameters(seed)``) in ``__init__`` and implement
     ``make_dataset``, ``loss``, ``predict`` and ``evaluate``."""
 
     def __init__(self, cfg: Config, device="cuda"):
@@ -75,10 +76,13 @@ class Pipeline:
     def make_dataset(self, split: str):
         raise NotImplementedError
 
-    def loss(self, batch: Dict[str, torch.Tensor]
+    def loss(self, batch: Dict[str, torch.Tensor],
+             rng: Optional[np.ndarray] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, aux metrics) of a batch of tensors on ``self.device``,
-        with the model in the mode the caller set."""
+        with the model in the mode the caller set; ``rng`` is the step's
+        dropout key (``step_key()`` when None), which only networks with
+        dropout read."""
         raise NotImplementedError
 
     def predict(self, batch: Dict[str, torch.Tensor]
@@ -109,66 +113,75 @@ class Pipeline:
                 for k, v in batch.items()}
 
     def init_state(self, seed: int = 0) -> None:
-        """Fresh training state: parameters from ``seed`` (an explicit
-        ``torch.Generator``), running statistics at their initial values,
-        a new optimizer at step 0."""
-        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        """Fresh training state: the JAX package's initial parameters
+        from ``seed`` (``models.common.reset_parameters``), running
+        statistics at their initial values, a new optimizer at step 0."""
+        self.model.reset_parameters(seed)
         self.optimizer, self.schedule = make_optimizer(
             self.model.parameters(), self.cfg.train)
 
     def state_dict(self) -> Dict:
         """The training state a checkpoint holds: the model's parameters
-        and running statistics, the optimizer's moments and step count,
-        and the dropout masks' generator where the pipeline has one."""
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict()}
-        gen = getattr(self, "dropout_generator", None)
-        if gen is not None:
-            state["dropout_generator"] = gen.get_state()
-        return state
+        and running statistics, the optimizer's moments and step count.
+        The dropout masks need nothing more: they are a function of
+        ``train.seed`` and the step."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: Dict) -> None:
-        """Restore what ``state_dict`` returned, after ``init_state``."""
+        """Restore what ``state_dict`` returned, after ``init_state``. A
+        checkpoint that also holds a dropout generator's state (written
+        before the masks were keyed by the step) loads, the state
+        ignored."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before load_state_dict()")
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
-        gen = getattr(self, "dropout_generator", None)
-        if gen is not None:
-            gen.set_state(state["dropout_generator"])
 
     @property
     def step(self) -> int:
         """Train steps taken since ``init_state``."""
         return self.optimizer.count
 
-    def forward_backward(self, batch: Dict[str, np.ndarray]
+    def step_key(self, step: Optional[int] = None) -> np.ndarray:
+        """The JAX loop's key of train step ``step`` (the next one,
+        ``self.step``, when None; 0 before ``init_state``):
+        ``fold_in(PRNGKey(train.seed + 17), step)``."""
+        if step is None:
+            step = self.step if self.optimizer is not None else 0
+        return step_key(self.cfg.train.seed, step)
+
+    def forward_backward(self, batch: Dict[str, np.ndarray],
+                         rng: Optional[np.ndarray] = None
                          ) -> Dict[str, torch.Tensor]:
         """The train-mode loss of a (global) batch and its gradients,
         added to the parameters' ``.grad``: on W ranks each rank's share
         of the loss is differentiated and the gradients are summed over
-        the ranks, so every rank holds the global batch's. Returns the
+        the ranks, so every rank holds the global batch's. ``rng`` is
+        the step's dropout key (``step_key()`` when None). Returns the
         loss's aux metrics plus ``loss``, global values, detached."""
         self.model.train()
         with use_mesh(self.mesh):
-            loss, aux = self.loss(self.device_batch(batch))
+            loss, aux = self.loss(self.device_batch(batch), rng)
             loss.backward()
             all_reduce_grads(list(self.model.parameters()), self.mesh)
             aux = {k: v.detach() for k, v in aux.items()}
             aux["loss"] = loss.detach()
             return global_metrics(aux)
 
-    def train_step(self, batch: Dict[str, np.ndarray]
+    def train_step(self, batch: Dict[str, np.ndarray],
+                   rng: Optional[np.ndarray] = None
                    ) -> Dict[str, torch.Tensor]:
         """Forward, backward and one optimizer update on a batch (numpy
         arrays or tensors; on W ranks the global batch, of which each
-        rank runs its rows). Returns the loss's aux metrics plus ``loss``
-        and ``grad_norm`` (the global norm before clipping), as 0-dim
-        tensors on the device."""
+        rank runs its rows), its dropout masks drawn under ``rng`` (the
+        step's key, ``step_key()`` when None). Returns the loss's aux
+        metrics plus ``loss`` and ``grad_norm`` (the global norm before
+        clipping), as 0-dim tensors on the device."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before train_step()")
         self.optimizer.zero_grad()
-        aux = self.forward_backward(batch)
+        aux = self.forward_backward(batch, rng)
         aux["grad_norm"] = self.optimizer.step()
         return aux
 

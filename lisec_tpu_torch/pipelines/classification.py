@@ -34,10 +34,8 @@ class PointNetClsPipeline(Pipeline):
         model, self.reg_weight = self.build_model(cfg)
         # Random weights from the seed; load_weights_npz replaces them and
         # init_state(seed) draws them anew for training.
-        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.reset_parameters(seed)
         self.model = model.to(self.device).eval()
-        self.dropout_generator = torch.Generator(
-            device=self.device).manual_seed(cfg.train.seed)
 
     def build_model(self, cfg: Config):
         """(the network, the orthogonality loss's weight)."""
@@ -49,12 +47,6 @@ class PointNetClsPipeline(Pipeline):
             dropout_rate=float(p.get("dropout_rate", 0.4)),
         ), float(p.get("reg_weight", 1e-3))
 
-    def init_state(self, seed: int = 0) -> None:
-        """As ``Pipeline.init_state``, and the dropout masks' generator
-        seeded anew from ``seed``."""
-        super().init_state(seed)
-        self.dropout_generator.manual_seed(seed)
-
     def make_dataset(self, split: str):
         return ModelNet40(self.cfg, split)
 
@@ -64,9 +56,9 @@ class PointNetClsPipeline(Pipeline):
         aug = self.cfg.data.augment
         return lambda s, rng: augment_cloud(s, rng, aug)
 
-    def loss(self, batch):
+    def loss(self, batch, rng=None):
         out = self.model(batch["points"], batch["point_mask"],
-                         generator=self.dropout_generator)
+                         rng=self.step_key() if rng is None else rng)
         logits, labels = out["logits"], batch["label"]
         ce = cross_entropy(logits, labels)
         ft = out["feature_transform"]

@@ -84,7 +84,7 @@ class PointPillarsPipeline(Pipeline):
         # Random weights from the seed; load_weights_npz replaces them and
         # init_state(seed) draws them anew for training.
         model = self.build_model(cfg)
-        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.reset_parameters(seed)
         self.model = model.to(self.device).eval()
         self.loss_weights = {
             "cls": float(p.get("cls_weight", 1.0)),
@@ -179,7 +179,7 @@ class PointPillarsPipeline(Pipeline):
         vox = self._voxelize_batch(batch["points"], batch["point_mask"])
         return vox.voxels, vox.coords, vox.num_points, vox.num_voxels
 
-    def loss(self, batch):
+    def loss(self, batch, rng=None):
         preds = self.model(*self._model_args(batch))
         return self.loss_terms(preds, self.assign(batch))
 

@@ -39,16 +39,8 @@ class PointNet2PartSegPipeline(Pipeline):
             width=int(p.get("width", 1)), msg=bool(p.get("msg", False)))
         # Random weights from the seed; load_weights_npz replaces them and
         # init_state(seed) draws them anew for training.
-        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.reset_parameters(seed)
         self.model = model.to(self.device).eval()
-        self.dropout_generator = torch.Generator(
-            device=self.device).manual_seed(cfg.train.seed)
-
-    def init_state(self, seed: int = 0) -> None:
-        """As ``Pipeline.init_state``, and the dropout masks' generator
-        seeded anew from ``seed``."""
-        super().init_state(seed)
-        self.dropout_generator.manual_seed(seed)
 
     def make_dataset(self, split: str):
         return ShapeNetPart(self.cfg, split)
@@ -65,9 +57,9 @@ class PointNet2PartSegPipeline(Pipeline):
                            self.num_categories).float()
         return batch["points"], batch["point_mask"], onehot
 
-    def loss(self, batch):
+    def loss(self, batch, rng=None):
         logits = self.model(*self._model_args(batch),
-                            generator=self.dropout_generator)
+                            rng=self.step_key() if rng is None else rng)
         labels = batch["point_labels"]
         ce = cross_entropy(logits, labels, mask=batch["point_mask"])
         valid = batch["point_mask"].bool() & (labels >= 0)

@@ -46,7 +46,7 @@ class RangeSegPipeline(Pipeline):
             dtype=getattr(torch, p.get("dtype", "float32")))
         # Random weights from the seed; load_weights_npz replaces them and
         # init_state(seed) draws them anew for training.
-        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.reset_parameters(seed)
         self.model = model.to(self.device).eval()
 
     def make_dataset(self, split: str):
@@ -69,7 +69,7 @@ class RangeSegPipeline(Pipeline):
         win = proj.winner_idx.clamp(max=n).long().flatten(1)
         return padded.gather(1, win).view(proj.winner_idx.shape)
 
-    def loss(self, batch):
+    def loss(self, batch, rng=None):
         proj = self._project(batch["points"], batch["point_mask"])
         logits = self.model(proj.image)
         labels = self._label_image(proj, batch["point_labels"])

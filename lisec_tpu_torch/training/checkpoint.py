@@ -3,8 +3,10 @@ which uses orbax).
 
 One ``torch.save`` file a saved step, ``<directory>/<step>.pt``, holding
 ``Pipeline.state_dict()``: the model's parameters and running
-statistics, the optimizer's moments and step count, and the dropout
-masks' generator where the pipeline has one. A file is written under a
+statistics, the optimizer's moments and step count (the dropout masks
+are keyed by ``train.seed`` and the step, and need no state; a file
+that also holds a dropout generator's state, as files written before
+did, loads with it ignored). A file is written under a
 temporary name and then renamed into place, so a run killed while
 saving leaves no partial checkpoint for ``latest_step`` to pick; the
 next save removes what such a run left.
@@ -86,8 +88,8 @@ class CheckpointManager:
         returns the step, or None when there is none. The file is read
         onto the host: the model's ``load_state_dict`` copies into its
         tensors on the device, the torch optimizer's puts each moment on
-        its parameter's device, and the step counts and the generator's
-        state stay on the host, where they belong."""
+        its parameter's device, and the step counts stay on the host,
+        where they belong."""
         if step is None:
             step = self.latest_step()
         if step is None:

@@ -31,9 +31,21 @@ import os
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from lisec_tpu_torch.config import Config
+from lisec_tpu_torch.utils import prng
+
+# The JAX loop keys its train steps from ``train.seed`` plus this.
+STEP_KEY_OFFSET = 17
+
+
+def step_key(seed: int, step: int) -> np.ndarray:
+    """The key of train step ``step`` (from 0), as the JAX loop draws it:
+    ``fold_in(PRNGKey(seed + 17), step)``. The dropout masks of the step
+    derive from it, so a resumed run draws what an unbroken one does."""
+    return prng.fold_in(prng.PRNGKey(seed + STEP_KEY_OFFSET), step)
 
 
 class MetricsLogger:
@@ -130,7 +142,7 @@ def run_training(cfg: Config, device="cuda", progress: bool = True,
     t0 = time.time()
     samples_done = 0
     for step in range(start_step, t.num_steps):
-        aux = pipeline.train_step(next(batches))
+        aux = pipeline.train_step(next(batches), step_key(t.seed, step))
         samples_done += t.batch_size
         if t.debug_nans:
             _check_finite(aux, step + 1)

@@ -1,5 +1,5 @@
 """Host-side utilities: the TensorBoard scalar writer, tracing and
-timing."""
+timing, and the reference's random streams (``utils.prng``)."""
 
 from lisec_tpu_torch.utils.profiling import Timer, device_sync, trace
 from lisec_tpu_torch.utils.tb_writer import (TensorBoardWriter,

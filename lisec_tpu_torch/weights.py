@@ -58,6 +58,7 @@ parameters and running statistics with the JAX package name by name.
 
 from __future__ import annotations
 
+import hashlib
 import re
 from typing import Dict, Optional
 
@@ -402,3 +403,11 @@ def to_flax_arrays(model: nn.Module,
             t = t.permute(2, 3, 4, 1, 0)
         out[key] = t.contiguous().numpy()
     return out
+
+
+def state_digests(model: nn.Module) -> Dict[str, str]:
+    """The SHA-256 of each ``state_dict`` tensor's bytes (C order, on the
+    host), by name: a record of a draw that is small enough to commit."""
+    return {name: hashlib.sha256(
+                t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for name, t in model.state_dict().items()}

@@ -86,7 +86,7 @@ def test_weight_files_cross_both_ways_bit_for_bit(model, tmp_path):
 
     # port -> JAX: the port's own weights (drawn from another seed) load
     # into a JAX state and come back unchanged.
-    port.model.reset_parameters(torch.Generator().manual_seed(3))
+    port.model.reset_parameters(3)
     port_file = str(tmp_path / "port.npz")
     bench_lib.save_weights_npz(port.model, port_file)
     mine = to_flax_arrays(port.model)

@@ -49,6 +49,7 @@ from lisec_tpu_torch.ops.ball_query import ball_query
 from lisec_tpu_torch.ops.cuda.fps import fps
 from lisec_tpu_torch.weights import (
     convert_flax_arrays, load_weights_npz, to_flax_arrays)
+from tests.dropout_masks import recorded_masks
 
 torch.set_num_threads(1)
 
@@ -394,6 +395,21 @@ def test_pipeline_loss_and_gradients_match_jax(config, identity_dropout,
     """Train-mode ``pipeline.loss`` of both packages from the same
     weights (JAX ``init_state(0)``'s, the T-Nets' output layers made
     non-zero) and the first unshuffled batch, dropout the identity."""
+    _loss_and_gradients_against_jax(config, tmp_path, dropout=False)
+
+
+@pytest.mark.parametrize("config", ["tiny", "both_tnets", "pointnet2"])
+def test_pipeline_loss_and_gradients_match_jax_with_dropout(
+        config, tmp_path, monkeypatch):
+    """As ``test_pipeline_loss_and_gradients_match_jax`` with dropout on:
+    both packages at the JAX loop's key of step 0, every mask bit-equal
+    to flax's, the loss and gradients within the same tolerances."""
+    _loss_and_gradients_against_jax(config, tmp_path, dropout=True,
+                                    monkeypatch=monkeypatch)
+
+
+def _loss_and_gradients_against_jax(config, tmp_path, dropout,
+                                    monkeypatch=None):
     path, over = {"tiny": (TINY, []),
                   "both_tnets": (TINY, ["model.params.use_input_tnet=true"]),
                   "pointnet2": (PN2, PN2_OVERRIDES)}[config]
@@ -409,10 +425,19 @@ def test_pipeline_loss_and_gradients_match_jax(config, identity_dropout,
                                   cfg.budget, cfg.train.batch_size,
                                   shuffle=False))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    (want, (want_aux, new_bs)), grads = jax.jit(jax.value_and_grad(
-        lambda p: jax_pipe.loss(p, state.batch_stats, jbatch,
-                                jax.random.PRNGKey(0), train=True),
-        has_aux=True))(params)
+    rng = jax.random.PRNGKey(0)
+    if dropout:
+        jax_masks, port_masks = recorded_masks(monkeypatch)
+        rng = jax.random.fold_in(jax.random.PRNGKey(cfg.train.seed + 17), 0)
+
+    @jax.jit
+    def jax_loss_and_grad(params):
+        out = jax.value_and_grad(
+            lambda p: jax_pipe.loss(p, state.batch_stats, jbatch, rng,
+                                    train=True), has_aux=True)(params)
+        return out, (list(jax_masks) if dropout else [])
+    ((want, (want_aux, new_bs)), grads), want_masks = \
+        jax_loss_and_grad(params)
     npz = str(tmp_path / "w.npz")
     save_weights_npz(types.SimpleNamespace(
         params=params, batch_stats=state.batch_stats), npz)
@@ -421,11 +446,19 @@ def test_pipeline_loss_and_gradients_match_jax(config, identity_dropout,
         apply_overrides(lisec_tpu_torch.load_config(path), over),
         device="cpu")
     load_weights_npz(port.model, npz)
-    port.model.head.dropout_rate = 0.0
+    if not dropout:
+        port.model.head.dropout_rate = 0.0
     port.model.train()
-    total, aux = port.loss(port.device_batch(batch))
+    if dropout:
+        np.testing.assert_array_equal(port.step_key(0), np.asarray(rng))
+    total, aux = port.loss(port.device_batch(batch), port.step_key(0))
     total.backward()
     port.model.eval()
+    if dropout:
+        # Two hidden layers in the head: two masks, each flax's.
+        assert len(want_masks) == len(port_masks) == 2
+        for w, g in zip(want_masks, port_masks):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     got_grads = to_flax_arrays(port.model, {
         n: p.grad for n, p in port.model.named_parameters()})
     got_state = to_flax_arrays(port.model)

@@ -75,16 +75,16 @@ FAULTS = {
 def _uneven(batch):
     """``batch`` with its clouds made unlike where the fixture makes them
     alike: detector cloud i keeps its first 1 + i % 5 boxes, and part-seg
-    cloud i leaves its last 64 (i % 4) points unlabelled (-1), so that the
-    ranks' rows hold different numbers of positives and of labelled points
-    (a rank that took its own count for the global batch's would get
-    another loss)."""
+    and range-seg cloud i leave their last 64 (i % 4) points unlabelled
+    (-1), so that the ranks' rows hold different numbers of positives and
+    of labelled points (a rank that took its own count for the global
+    batch's would get another loss)."""
     batch = dict(batch)
     if "gt_mask" in batch:
         n, m = batch["gt_mask"].shape
         keep = 1 + np.arange(n) % 5
         batch["gt_mask"] = batch["gt_mask"] & (np.arange(m) < keep[:, None])
-    if "point_labels" in batch and "category" in batch:
+    if "point_labels" in batch:
         labels = batch["point_labels"].copy()
         n, m = labels.shape
         labels[np.arange(m) >= m - 64 * (np.arange(n) % 4)[:, None]] = -1
@@ -561,6 +561,36 @@ def test_dp_gradients_and_step_equal_one_device(path, f64, tmp_path):
                 {k: v.dtype for k, v in want.items()}
             _same_boxes(got, want)
             _same_boxes(got, jax_out)
+
+
+def _rank_masks(shapes):
+    """One rank's dropout masks: ``models.common.dropout`` of ones of its
+    rows of each global shape, under the data mesh, as a DP train step
+    draws them (from the flat index of the rank's first row)."""
+    from lisec_tpu_torch.models.common import dropout
+    from lisec_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from lisec_tpu_torch.training.loop import step_key
+    mesh = make_mesh(0, "cpu")
+    out = []
+    with use_mesh(mesh):
+        for shape in shapes:
+            rows = torch.ones((shape[0] // mesh.world, *shape[1:]))
+            out.append(dropout(rows, 0.4, step_key(0, 5)) != 0)
+    return out
+
+
+def test_dp_dropout_masks_are_the_one_process_masks():
+    """The ranks draw only their rows, and together the single-device
+    masks: part seg's head and the classifiers' hidden layers."""
+    from lisec_tpu_torch.models.common import dropout
+    from lisec_tpu_torch.training.loop import step_key
+    shapes = [(16, 64, 128), (16, 512), (8, 256)]
+    ranks = run_ranks(_rank_masks, WORLD, shapes, device="cpu")
+    for i, shape in enumerate(shapes):
+        one = dropout(torch.ones(shape), 0.4, step_key(0, 5)) != 0
+        got = torch.cat([r[i] for r in ranks])
+        assert torch.equal(got, one), shape
+        assert 0.55 < float(one.float().mean()) < 0.65
 
 
 def test_dryrun_multichip(capsys):

@@ -211,7 +211,7 @@ def test_run_evaluation_and_api_evaluate(capsys, tmp_path):
     cfg = lisec_tpu_torch.load_config(_config("pointnet_modelnet40_tiny"))
     # With a checkpoint directory, the latest checkpoint's weights.
     ckpt = apply_overrides(cfg, [f"train.ckpt_dir={tmp_path / 'run'}",
-                                 "train.num_steps=3", "train.log_every=10"])
+                                 "train.num_steps=30", "train.log_every=10"])
     trained, _ = lisec_tpu_torch.train(ckpt, device="cpu", progress=False)
     restored = run_evaluation(ckpt, device="cpu")
     assert restored == trained.evaluate()

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never fall back from the card to the CPU."""
+"""The port stands alone: it imports neither JAX, flax nor the JAX
+package, and its entry points never fall back from the card to the
+CPU."""
 
 import os
 import re
@@ -23,6 +24,7 @@ for m in pkgutil.walk_packages(lisec_tpu_torch.__path__, "lisec_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
+             or k == "flax" or k.startswith("flax.")
              or k == "lisec_tpu" or k.startswith("lisec_tpu."))
 print(len([k for k in sys.modules if k.startswith("lisec_tpu_torch")]), bad)
 sys.exit(1 if bad else 0)
@@ -42,6 +44,7 @@ def test_chip_smoke_names_no_jax():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         src = f.read()
     assert not re.search(r"\bjax\b", src)
+    assert not re.search(r"\bflax\b", src)
     assert not re.search(r"lisec_tpu(?!_torch)", src)
 
 

@@ -13,6 +13,7 @@ import types
 
 import flax.linen
 import jax
+from flax.core.scope import _fold_in_static
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -36,9 +37,11 @@ from lisec_tpu_torch.data.collate import make_batches
 from lisec_tpu_torch.data.shapenetpart import ShapeNetPart
 from lisec_tpu_torch.models.common import SharedMLP, masked_max
 from lisec_tpu_torch.models.pointnet2 import PointNet2PartSeg
+from lisec_tpu_torch.training.loop import step_key
 from lisec_tpu_torch.training.losses import cross_entropy
 from lisec_tpu_torch.weights import (
     convert_flax_arrays, load_weights_npz, to_flax_arrays)
+from tests.dropout_masks import recorded_masks
 
 torch.set_num_threads(1)
 
@@ -274,15 +277,16 @@ def identity_dropout(monkeypatch):
     monkeypatch.setattr(jax_pointnet2, "nn", nn)
 
 
-def _port_loss_and_grads(pipe, path, batch):
-    """Train-mode ``pipe.loss`` from the weights at ``path``, dropout off:
-    (loss, aux, flax-named gradients, flax-named state after the step)."""
+def _port_loss_and_grads(pipe, path, batch, rng=None):
+    """Train-mode ``pipe.loss`` from the weights at ``path``, dropout off,
+    or on under the step key ``rng`` where one is given: (loss, aux,
+    flax-named gradients, flax-named state after the step)."""
     load_weights_npz(pipe.model, path)
-    pipe.model.dropout_rate = 0.0
+    pipe.model.dropout_rate = 0.0 if rng is None else 0.4
     pipe.model.train()
     pipe.model.zero_grad()
     try:
-        total, aux = pipe.loss(pipe.device_batch(batch))
+        total, aux = pipe.loss(pipe.device_batch(batch), rng)
         total.backward()
     finally:
         pipe.model.eval()
@@ -312,19 +316,48 @@ def test_pipeline_loss_and_gradients_match_jax(jax_pipe, port_pipe,
                                                monkeypatch):
     """Train-mode ``pipeline.loss`` of both packages from the same weights
     and batch, dropout the identity on both sides."""
+    _loss_and_gradients_against_jax(jax_pipe, port_pipe, tiny_state,
+                                    monkeypatch, dropout=False)
+
+
+def test_pipeline_loss_and_gradients_match_jax_with_dropout(
+        jax_pipe, port_pipe, tiny_state, monkeypatch):
+    """As ``test_pipeline_loss_and_gradients_match_jax`` with dropout on:
+    both packages at the JAX loop's key of step 0, the mask bit-equal to
+    flax's, the loss and gradients within the same tolerances."""
+    _loss_and_gradients_against_jax(jax_pipe, port_pipe, tiny_state,
+                                    monkeypatch, dropout=True)
+
+
+def _loss_and_gradients_against_jax(jax_pipe, port_pipe, tiny_state,
+                                    monkeypatch, dropout):
     state, batch, path = tiny_state
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    rng = jax.random.PRNGKey(0)
+    if dropout:
+        jax_masks, port_masks = recorded_masks(monkeypatch)
+        rng = jax.random.fold_in(
+            jax.random.PRNGKey(jax_pipe.cfg.train.seed + 17), 0)
 
     @jax.jit
     def jax_loss_and_grad(params):
-        return jax.value_and_grad(
-            lambda p: jax_pipe.loss(p, state.batch_stats, jbatch,
-                                    jax.random.PRNGKey(0), train=True),
-            has_aux=True)(params)
-    (want, (want_aux, new_bs)), grads = jax_loss_and_grad(state.params)
+        out = jax.value_and_grad(
+            lambda p: jax_pipe.loss(p, state.batch_stats, jbatch, rng,
+                                    train=True), has_aux=True)(params)
+        return out, (list(jax_masks) if dropout else [])
+    ((want, (want_aux, new_bs)), grads), want_masks = jax_loss_and_grad(
+        state.params)
     want_grads = _flat(grads, "params")
+    key = None
+    if dropout:
+        key = port_pipe.step_key(0)
+        np.testing.assert_array_equal(key, np.asarray(rng))
     total, aux, got_grads, got_state = _port_loss_and_grads(
-        port_pipe, path, batch)
+        port_pipe, path, batch, key)
+    if dropout:
+        assert len(want_masks) == len(port_masks) == 1
+        np.testing.assert_array_equal(port_masks[0].numpy(),
+                                      np.asarray(want_masks[0]))
 
     # f32 on both sides, the gathers exact on both: the loss to 1e-5
     # (measured 9e-7), the accuracy exactly, the running statistics to
@@ -360,6 +393,8 @@ def test_pipeline_loss_and_gradients_match_jax(jax_pipe, port_pipe,
     for k, w in want_grads.items():
         if k not in zero:
             assert _rel(got_grads[k], w) < 0.05, (k, _rel(got_grads[k], w))
+    if dropout:
+        return
     import lisec_tpu_torch.models.common as common
     monkeypatch.setattr(common, "batch_norm", _batch_norm_f64_sums)
     _, _, f64_grads, _ = _port_loss_and_grads(port_pipe, path, batch)
@@ -369,19 +404,28 @@ def test_pipeline_loss_and_gradients_match_jax(jax_pipe, port_pipe,
 
 
 def test_dropout_keeps_its_share_scales_and_repeats():
+    """flax's ``Dropout_0`` under a step key: keep 1 - 0.4, scale by the
+    f32 reciprocal of 0.6, the same mask for the same key and another
+    for another; the identity in ``eval()``."""
     model = PointNet2PartSeg(num_parts=4, num_categories=2).train()
     h = torch.ones((64, 512))
     masks = []
-    for seed in (3, 3, 4):
-        out = model.dropout(h, torch.Generator().manual_seed(seed))
+    for step in (3, 3, 4):
+        out = model.dropout(h, step_key(0, step))
         assert set(torch.unique(out).tolist()) <= {
-            0.0, float(torch.tensor(1.0) / 0.6)}
+            0.0, float(np.float32(1.0) / np.float32(0.6))}
         masks.append(out != 0)
     share = float(masks[0].float().mean())
     assert abs(share - 0.6) < 0.01                 # keep with 1 - 0.4
-    assert torch.equal(masks[0], masks[1])         # same generator state
+    assert torch.equal(masks[0], masks[1])         # same key
     assert not torch.equal(masks[0], masks[2])
+    want = jax.random.bernoulli(_fold_in_static(
+        jax.random.fold_in(jax.random.PRNGKey(17), 3), ("Dropout_0", 1)),
+        0.6, (64, 512))
+    np.testing.assert_array_equal(masks[0].numpy(), np.asarray(want))
     assert torch.equal(model.eval().dropout(h, None), h)
+    with pytest.raises(ValueError, match="key"):
+        model.train().dropout(h, None)
 
 
 def test_cross_entropy_matches_jax():
