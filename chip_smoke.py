@@ -65,9 +65,15 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    the counts set to 0 just before a build and read just after (one
    ``segment_paint``, nothing else), equal to ``build_scatter_rulebook``,
    its paint call bit-equal to the plain version, both builders timed;
+   then SECOND with ``downsample: footprint`` the same way
+   (``configs/second_kitti_footprint.yaml`` at batch 8 and 1, the spread
+   on its nine convs bit-equal, the launches as dilate's), every kernel
+   call of a ``configs/second_footprint_conv.yaml`` train step at batch 4
+   against its plain version, also with every level cut to a smaller
+   budget (``FOOTPRINT_TRUNCATED``), and its train steps as phase 4's;
 6. time the PointPillars predict at batch 8 and 32, the SECOND predict
-   at batch 1 and 8 with its stages (and its two paint calls at batch
-   8), both train steps and their parts at batch 4, and every kernel, its
+   (dilate and footprint) at batch 1 and 8 with its stages (and its two
+   paint calls at batch 8), the three detector train steps and their parts at batch 4, and every kernel, its
    plain version and (where one exists) the PyTorch call for the same
    function at the main paths' shapes, with CUDA events;
 7. PointNet++ part segmentation (``configs/pointnet2_partseg_fixture_conv
@@ -87,7 +93,14 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    made the identity, a
    short ``train(cfg)``; the predict by
    stage, the train step by part, every point-kernel call (FPS beside its
-   round floor: its block reductions and barriers alone);
+   round floor: its block reductions and barriers alone); then the MSG
+   network (``configs/pointnet2_shapenetpart_msg.yaml`` on the fixture:
+   five groupings at radii 0.1-0.8 with up to 128 neighbours) the same
+   way: predict at batch 16 and 1 (2 FPS and 7 gathers), its tiny config
+   on the card against the CPU, train steps at batch 16 (4 scatters and 1
+   ``threefry`` a step) against the plain route, every grouping, gather
+   and scatter call of a predict and a step bit-equal to the plain
+   version, and the same timings;
 8. range-image segmentation (``configs/rangeseg_fixture_conv.yaml`` at
    full width: 64 x 2048 image, widths 32/64/128/256, bf16, 131,072-point
    budget, seed-initialised weights, SemanticKITTI-like scans of 16,000
@@ -1576,15 +1589,17 @@ def spread_on_scratch(vals, targets, num_out, scratch):
     return out
 
 
-def phase_spread_kernel_check(pipe, cfg, gen):
+def phase_spread_kernel_check(pipe, cfg, gen, prefix="", edges=True):
     """``spread_accumulate`` on the card against its plain version, bit
     for bit and twice: on the scatter rulebooks of ray-cast scenes at
     SECOND's full width (all nine convs of a batch-8 predict, the six
     submanifold ones with the inverse map the encoder hands them, which
     must equal the inverse built here; the three strided ones also on
-    scratch filled with garbage, and one at batch 1), on edge cases, and
-    through the sparse conv's ``Function`` forward and backward. Returns
-    the largest |difference| from the plain version that it saw."""
+    scratch filled with garbage, and one at batch 1), with ``edges`` on
+    edge cases, and through the sparse conv's ``Function`` forward and
+    backward. ``prefix`` starts each case's name (another config of the
+    same path). Returns the largest |difference| from the plain version
+    that it saw."""
     import torch
     from lisec_tpu_torch.ops import sparse_conv
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
@@ -1616,6 +1631,7 @@ def phase_spread_kernel_check(pipe, cfg, gen):
         again = run()
         err = float((got - ref).abs().max())
         worst = max(worst, err)
+        what = prefix + what
         if not torch.equal(got, ref):
             raise AssertionError(
                 f"spread_accumulate {what}: {int((got != ref).sum())} "
@@ -1678,46 +1694,49 @@ def phase_spread_kernel_check(pipe, cfg, gen):
                                    torch.float32), out_of, valid.shape[1],
               sources=given[0] if given else None)
 
-    b, k, n, num_out = 2, 27, 4096, 4096
-    ident = torch.arange(n, dtype=torch.int32).expand(b, k, n).contiguous()
-    last = torch.full((b, k, n), -1, dtype=torch.int32)
-    last[:, :, 17] = num_out - 1
-    for what, targets, c in (
-            ("all_rows_dropped", ident + num_out, 16),
-            ("all_rows_dropped_negative", ident - n, 16),
-            ("every_output_hit_by_all_offsets", ident, 64),
-            ("all_streams_onto_the_last_row", last, 32),
-            ("one_channel", ident.flip(2).contiguous(), 1),
-            ("odd_channels", ident, 5),
-            ("wide_rows", ident.flip(2).contiguous(), 384)):
-        targets = targets.cuda()
-        for dtype in (torch.bfloat16, torch.float32):
-            vals = randn((b, k, n, c), dtype)
-            got = check(what, vals, targets, num_out)
-            check(what + "_given_map", vals, targets, num_out,
-                  sources=inverse_map(targets, num_out))
-            check(what + "_garbage_rows", vals, targets, num_out,
-                  scratch=garbage(b, k, num_out, n, "rows"))
-            if "dropped" in what and got.any():
-                raise AssertionError(f"{what}: a dropped row landed")
-            if what == "all_streams_onto_the_last_row" and (
-                    got[:, :-1].any() or not got[:, -1].any()):
-                raise AssertionError(f"{what}: rows beside the last")
-    # K above the 32 offsets a warp takes at a time, a table of one row,
-    # a vals pointer off 16 bytes.
-    tg = torch.stack([torch.randperm(600, generator=gen, device="cuda")
-                      for _ in range(2 * 40)]).view(2, 40, 600)
-    check("k40", randn((2, 40, 600, 16), torch.bfloat16),
-          (tg - 50).to(torch.int32).contiguous(), 500)
-    check("one_output_row", randn((1, 3, 4, 8), torch.float32),
-          torch.tensor([[[0, -1, -1, -1], [-1, 0, -1, -1], [-1, -1, -1, 0]]],
-                       dtype=torch.int32, device="cuda"), 1)
-    off = randn((2 * 27 * 512 * 16 + 1,), torch.bfloat16)[1:].view(
-        2, 27, 512, 16)
-    if off.data_ptr() % 16 == 0:
-        raise AssertionError("the unaligned case is aligned")
-    check("vals_not_16_byte_aligned", off, ident[:, :, :512].cuda()
-          .contiguous(), 512)
+    if edges:
+        b, k, n, num_out = 2, 27, 4096, 4096
+        ident = torch.arange(n, dtype=torch.int32).expand(
+            b, k, n).contiguous()
+        last = torch.full((b, k, n), -1, dtype=torch.int32)
+        last[:, :, 17] = num_out - 1
+        for what, targets, c in (
+                ("all_rows_dropped", ident + num_out, 16),
+                ("all_rows_dropped_negative", ident - n, 16),
+                ("every_output_hit_by_all_offsets", ident, 64),
+                ("all_streams_onto_the_last_row", last, 32),
+                ("one_channel", ident.flip(2).contiguous(), 1),
+                ("odd_channels", ident, 5),
+                ("wide_rows", ident.flip(2).contiguous(), 384)):
+            targets = targets.cuda()
+            for dtype in (torch.bfloat16, torch.float32):
+                vals = randn((b, k, n, c), dtype)
+                got = check(what, vals, targets, num_out)
+                check(what + "_given_map", vals, targets, num_out,
+                      sources=inverse_map(targets, num_out))
+                check(what + "_garbage_rows", vals, targets, num_out,
+                      scratch=garbage(b, k, num_out, n, "rows"))
+                if "dropped" in what and got.any():
+                    raise AssertionError(f"{what}: a dropped row landed")
+                if what == "all_streams_onto_the_last_row" and (
+                        got[:, :-1].any() or not got[:, -1].any()):
+                    raise AssertionError(f"{what}: rows beside the last")
+        # K above the 32 offsets a warp takes at a time, a table of one row,
+        # a vals pointer off 16 bytes.
+        tg = torch.stack([torch.randperm(600, generator=gen, device="cuda")
+                          for _ in range(2 * 40)]).view(2, 40, 600)
+        check("k40", randn((2, 40, 600, 16), torch.bfloat16),
+              (tg - 50).to(torch.int32).contiguous(), 500)
+        check("one_output_row", randn((1, 3, 4, 8), torch.float32),
+              torch.tensor([[[0, -1, -1, -1], [-1, 0, -1, -1],
+                             [-1, -1, -1, 0]]],
+                           dtype=torch.int32, device="cuda"), 1)
+        off = randn((2 * 27 * 512 * 16 + 1,), torch.bfloat16)[1:].view(
+            2, 27, 512, 16)
+        if off.data_ptr() % 16 == 0:
+            raise AssertionError("the unaligned case is aligned")
+        check("vals_not_16_byte_aligned", off, ident[:, :, :512].cuda()
+              .contiguous(), 512)
 
     # The conv's Function, kernels against plain versions: the same
     # products around them, so the forward must be bit-equal; the
@@ -1740,14 +1759,15 @@ def phase_spread_kernel_check(pipe, cfg, gen):
             torch.cuda.synchronize()
             outs.append((y.detach(), x.grad.float(), w.grad.float()))
         if not torch.equal(outs[0][0], outs[1][0]):
-            raise AssertionError(f"sparse conv {i}: forward differs from "
-                                 "the plain Function")
+            raise AssertionError(f"{prefix}sparse conv {i}: forward "
+                                 "differs from the plain Function")
         rel = [float((a - p).norm() / p.norm().clamp_min(1e-30))
                for a, p in zip(outs[0][1:], outs[1][1:])]
         if max(rel) > 1e-6:
             raise AssertionError(f"sparse conv {i}: gradients differ from "
                                  f"the plain Function by {rel}")
-        emit("kernel_check", kernel="sparse_conv3d_spread", conv=i,
+        emit("kernel_check", kernel="sparse_conv3d_spread",
+             case=f"{prefix}conv{i}", conv=i,
              features=list(feats.shape), out_rows=valid.shape[1],
              inverse_map="given" if given else "built",
              forward="bit-equal", grad_rel_l2=rel,
@@ -1764,7 +1784,7 @@ POINTPILLARS_LAUNCHES_PER_TRAIN_STEP = {
     "segment_paint": 3, "segment_unpaint": 2, "spread_accumulate": 0}
 
 
-def phase_second_serving(pipe, cfg):
+def phase_second_serving(pipe, cfg, config="second_kitti"):
     """SECOND serving at full width through ``infer``: launch counts,
     output checks, per-level active counts, and the kernel route against
     the plain route (head maps; keep sets with the score threshold at 0
@@ -1785,6 +1805,13 @@ def phase_second_serving(pipe, cfg):
     if out["boxes"].shape != (8, cfg.budget.nms_post, 7):
         raise AssertionError(f"second predict: boxes "
                              f"{tuple(out['boxes'].shape)}")
+    one, _ = scene_batch(cfg, 1)
+    zero_segment_launches()
+    infer(pipe, one)
+    torch.cuda.synchronize()
+    if segment_launches() != SECOND_LAUNCHES_PER_PREDICT:
+        raise AssertionError(f"{config} predict at batch 1 launches "
+                             f"{segment_launches()}")
 
     dev = pipe.device_batch(batch)
     convs = recorded_sparse_convs(pipe, dev)
@@ -1814,8 +1841,9 @@ def phase_second_serving(pipe, cfg):
     if not out_k["valid"].any():
         raise AssertionError("second predict at threshold 0: no box kept")
     same_outputs(out_k, out_p, "second kernel vs plain route", 1e-3)
-    emit("second_main_path", config="second_kitti", batch=8,
-         launches=launches, voxels_and_active_per_level=counts,
+    emit("second_main_path", config=config, batch=8,
+         launches=launches, launches_batch_1=launches,
+         voxels_and_active_per_level=counts,
          budgets=list(enc.level_budgets),
          kept_per_cloud=out["valid"].sum(1).tolist(),
          kept_per_cloud_at_threshold_0=out_k["valid"].sum(1).tolist(),
@@ -2014,7 +2042,7 @@ def second_stage_ms(pipe, dev, runs=5):
     return ms
 
 
-def phase_second_timing(pipe, cfg):
+def phase_second_timing(pipe, cfg, config="second_kitti"):
     """SECOND predict at batch 1 and 8 (from host numpy, device-resident,
     by stage), every ``spread_accumulate`` call of one predict on the
     tensors the path hands it, and at batch 8 its two ``segment_paint``
@@ -2033,7 +2061,7 @@ def phase_second_timing(pipe, cfg):
         with torch.no_grad():
             ms_dev_nms = cuda_ms(lambda: pipe.predict(dev), iters=5)
         pipe.score_thr = threshold
-        emit("second_predict", config="second_kitti", batch=b,
+        emit("second_predict", config=config, batch=b,
              ms_per_batch=ms, clouds_per_s=b * 1e3 / ms,
              device_resident_ms=ms_dev,
              device_resident_clouds_per_s=b * 1e3 / ms_dev,
@@ -2050,10 +2078,131 @@ def phase_second_timing(pipe, cfg):
         for kernel, per_call in zip(("spread_accumulate", "segment_paint"),
                                     rows[b]):
             for i, call in enumerate(per_call):
-                emit("second_kernel", kernel=kernel, batch=b, call=i, **call)
+                emit("second_kernel", config=config, kernel=kernel,
+                     batch=b, call=i, **call)
     if len(rows[8][1]) != SECOND_LAUNCHES_PER_PREDICT["segment_paint"]:
         raise AssertionError(f"second predict paint calls {len(rows[8][1])}")
     return rows[8]
+
+
+# -- SECOND with the footprint downsample ------------------------------------
+
+SECOND_FOOTPRINT_CFG = os.path.join(ROOT, "configs",
+                                    "second_kitti_footprint.yaml")
+SECOND_FOOTPRINT_TRAIN_CFG = os.path.join(ROOT, "configs",
+                                          "second_footprint_conv.yaml")
+# Budgets that cut every level of the footprint train fixture's first
+# batch: its levels 1-3 hold about 6,100, 4,500 and 3,150 cells a cloud
+# under these cuts. The shipped budgets already cut level 1 of 6 of the 8
+# ray-cast scenes that the serving phases predict on.
+FOOTPRINT_CUT = (5120, 4096, 2560)
+FOOTPRINT_TRUNCATED = ("model.params.level_budgets="
+                       f"[16000,{','.join(map(str, FOOTPRINT_CUT))}]",)
+
+
+def strided_level_counts(pipe, dev):
+    """Cells a cloud at each level a strided sparse conv writes (its
+    output list), from an eval forward on ``dev``."""
+    return [conv[3].sum(1).tolist()
+            for conv in recorded_sparse_convs(pipe, dev) if len(conv) == 4]
+
+
+def phase_footprint_serving(gen):
+    """SECOND with ``downsample: footprint`` at full width
+    (``configs/second_kitti_footprint.yaml``, seed weights): the spread
+    kernel bit-equal on the nine convs of a batch-8 predict (no edge
+    cases: phase 5 ran them), then serving as phase 5 holds dilate's.
+    Returns (pipe, cfg, launches a predict, the spread's largest |d|)."""
+    from lisec_tpu_torch.api import build_model, load_config
+    cfg = load_config(SECOND_FOOTPRINT_CFG)
+    pipe = build_model(cfg)
+    if pipe.model.encoder.downsample != "footprint":
+        raise AssertionError("second_kitti_footprint: not footprint")
+    err = phase_spread_kernel_check(pipe, cfg, gen, prefix="footprint_",
+                                    edges=False)
+    launches = phase_second_serving(pipe, cfg, "second_kitti_footprint")
+    return pipe, cfg, launches, err
+
+
+def phase_footprint_kernel_check():
+    """Every kernel call of one footprint SECOND train step
+    (``configs/second_footprint_conv.yaml``, full width, batch 4) against
+    its plain version on the very tensors the step hands it: the nine
+    spreads and ten unpaint-source gathers bit for bit, the three paints
+    by ``check_paint``; as shipped, and with ``FOOTPRINT_TRUNCATED``,
+    where every level keeps exactly its budget. Returns the largest |d|
+    by kernel."""
+    import torch
+    from lisec_tpu_torch.api import build_model
+    from lisec_tpu_torch.data.collate import make_batches
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    worst = dict.fromkeys(SECOND_LAUNCHES_PER_TRAIN_STEP, 0.0)
+    counts = {}
+    for case, overrides in (("footprint_step", ()),
+                            ("footprint_truncated_step",
+                             FOOTPRINT_TRUNCATED)):
+        cfg = train_config(SECOND_FOOTPRINT_TRAIN_CFG, 1,
+                           overrides=overrides)
+        pipe = build_model(cfg)
+        pipe.init_state(cfg.train.seed)
+        batch = next(make_batches(pipe.make_dataset("train"), cfg.budget,
+                                  cfg.train.batch_size, shuffle=True,
+                                  seed=cfg.train.seed))
+        counts[case] = strided_level_counts(pipe, pipe.device_batch(batch))
+        calls = {}
+        with recorded_segment_calls(calls):
+            loss_and_grads(pipe, batch)
+        n_calls = {k: len(v) for k, v in calls.items()}
+        if n_calls != SECOND_LAUNCHES_PER_TRAIN_STEP:
+            raise AssertionError(f"{case}: kernel calls {n_calls}")
+        for i, (vals, targets, num_out, sources) in enumerate(
+                calls["spread_accumulate"]):
+            got = sa.spread_accumulate(vals, targets, num_out=num_out,
+                                       sources=sources)
+            torch.cuda.synchronize()
+            ref = sa.spread_accumulate_reference(vals, targets,
+                                                 num_out=num_out)
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"spread_accumulate {case} conv {i}: "
+                    f"{int((got != ref).sum())} elements differ")
+            emit("kernel_check", kernel="spread_accumulate",
+                 case=f"{case}_conv{i}", vals=list(vals.shape),
+                 dtype=str(vals.dtype), num_out=num_out,
+                 inverse_map="given" if sources is not None else "built",
+                 rows_landed=int(((targets >= 0)
+                                  & (targets < num_out)).sum()),
+                 bit_equal=True, max_abs_err=0.0)
+        for i, (vals, ids, nc, num_max, _) in enumerate(
+                calls["segment_paint"]):
+            got = sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max)
+            torch.cuda.synchronize()
+            ref = sp.segment_paint_reference(vals, ids, num_cells=nc,
+                                             num_max=num_max)
+            err, bits = check_paint(got, ref, num_max,
+                                    f"segment_paint {case} call {i}")
+            worst["segment_paint"] = max(worst["segment_paint"], err)
+            emit("kernel_check", kernel="segment_paint",
+                 case=f"{case}_call{i}", shape=list(got.shape),
+                 num_max=num_max, max_channels="bit-equal",
+                 sum_max_abs_err=err, sum_elements_differing=bits)
+        for i, (entry, args, kw) in enumerate(calls["segment_unpaint"]):
+            equal_to_plain(entry, args, kw, f"{case} call {i}")
+            emit("kernel_check", kernel="segment_unpaint", entry=entry,
+                 case=f"{case}_call{i}", table=list(args[0].shape),
+                 ids=list(args[1].shape), bit_equal=True, max_abs_err=0.0)
+        del pipe
+    cut = counts["footprint_truncated_step"]
+    if any(c != budget for lv, budget in zip(cut, FOOTPRINT_CUT)
+           for c in lv) or any(c <= FOOTPRINT_CUT[0]
+                               for c in counts["footprint_step"][0]):
+        raise AssertionError(f"footprint levels {counts}, cut to "
+                             f"{FOOTPRINT_CUT}")
+    emit("footprint_levels", config="second_footprint_conv", batch=4,
+         cells_per_cloud_levels_1_to_3=counts["footprint_step"],
+         cut_to=list(FOOTPRINT_CUT), cells_when_cut=cut)
+    return worst
 
 
 # -- PointNet++: the point kernels, serving, training, timing ----------------
@@ -2376,10 +2525,13 @@ def phase_point_kernel_check(pipe, cfg, gen):
     return worst
 
 
-def phase_partseg_serving(pipe, cfg):
+def phase_partseg_serving(pipe, cfg, config="pointnet2_partseg_fixture_conv",
+                          per_predict=None):
     """Full-width PointNet++ predict at batch 16 and 1 through ``infer``:
-    launches (2 FPS and 4 gathers per predict, nothing else), outputs,
-    and the kernel route against the plain route on the card."""
+    launches (``per_predict``; SSG's 2 FPS and 4 gathers a predict,
+    nothing else), outputs, and the kernel route against the plain route
+    on the card."""
+    per_predict = per_predict or PARTSEG_LAUNCHES_PER_PREDICT
     import torch
     from lisec_tpu_torch.api import infer
     per_batch = {}
@@ -2389,9 +2541,9 @@ def phase_partseg_serving(pipe, cfg):
         out = infer(pipe, batch)
         torch.cuda.synchronize()
         launches = all_launches()
-        if launches != PARTSEG_LAUNCHES_PER_PREDICT:
-            raise AssertionError(f"partseg predict launches {launches}, "
-                                 f"expected {PARTSEG_LAUNCHES_PER_PREDICT}")
+        if launches != per_predict:
+            raise AssertionError(f"{config} predict launches {launches}, "
+                                 f"expected {per_predict}")
         logits, labels = out["logits"], out["labels"]
         if logits.shape != (b, cfg.budget.max_points, pipe.num_parts) \
                 or not torch.isfinite(logits).all():
@@ -2411,7 +2563,7 @@ def phase_partseg_serving(pipe, cfg):
                                  f"differ by {diff} (largest {scale})")
         point_acc = float((labels.long() == torch.as_tensor(
             batch["point_labels"], device="cuda")).float().mean())
-        emit("partseg_main_path", config="pointnet2_partseg_fixture_conv",
+        emit("partseg_main_path", config=config,
              batch=b, launches=launches, logits_max_abs=scale,
              max_abs_diff_vs_plain=diff,
              matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -2423,13 +2575,14 @@ def phase_partseg_serving(pipe, cfg):
     return per_batch[16]
 
 
-def phase_partseg_tiny_vs_cpu():
-    """``pointnet2_partseg_tiny`` (seed-initialised) on the card against
-    the CPU: labels equal except where the top two logits lie within
-    1e-5."""
+def phase_partseg_tiny_vs_cpu(config="pointnet2_partseg_tiny", overrides=()):
+    """``pointnet2_partseg_tiny`` (seed-initialised; with ``overrides``)
+    on the card against the CPU: labels equal except where the top two
+    logits lie within 1e-5."""
     import torch
     from lisec_tpu_torch.api import build_model, infer, load_config
-    cfg = load_config(PARTSEG_TINY_CFG)
+    from lisec_tpu_torch.config import apply_overrides
+    cfg = apply_overrides(load_config(PARTSEG_TINY_CFG), list(overrides))
     outs = []
     for d in ("cuda", "cpu"):
         pipe = build_model(cfg, d)
@@ -2439,9 +2592,9 @@ def phase_partseg_tiny_vs_cpu():
     near = (top2[..., 0] - top2[..., 1]) <= 1e-5
     differ = outs[0]["labels"] != outs[1]["labels"]
     if (differ & ~near).any():
-        raise AssertionError(f"pointnet2_partseg_tiny cuda vs cpu: "
+        raise AssertionError(f"{config} cuda vs cpu: "
                              f"{int((differ & ~near).sum())} labels differ")
-    emit("tiny_vs_cpu", config="pointnet2_partseg_tiny",
+    emit("tiny_vs_cpu", config=config,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          logits_max_abs_diff=float((outs[0]["logits"]
                                     - outs[1]["logits"]).abs().max()),
@@ -2463,10 +2616,14 @@ def partseg_loss_and_grads(pipe, batch):
             {n: p.grad.clone() for n, p in pipe.model.named_parameters()})
 
 
-def phase_partseg_train():
+def phase_partseg_train(path=PARTSEG_CFG, overrides=(),
+                        config="pointnet2_partseg_fixture_conv",
+                        per_step=None):
     """Full-width PointNet++ train steps at batch 16 (Adam, the step
-    schedule, augmentation on) through ``train_step``: launches (2 FPS, 4
-    gathers, 3 scatters a step), finite loss, every tensor moved; the first
+    schedule, augmentation on) of the config at ``path`` through
+    ``train_step``: launches (``per_step``; SSG's 2 FPS, 4 gathers, 3
+    scatters and 1 ``threefry`` a step), finite loss, every tensor moved;
+    the first
     step's loss and gradients against the same step over the plain
     versions, dropout made the identity for that comparison; then a short
     ``lisec_tpu_torch.train`` whose loss falls."""
@@ -2475,8 +2632,9 @@ def phase_partseg_train():
     from lisec_tpu_torch.api import build_model
     from lisec_tpu_torch.config import apply_overrides, load_config
     from lisec_tpu_torch.data.collate import make_batches
-    cfg = apply_overrides(load_config(PARTSEG_CFG), [
-        'train.ckpt_dir=""', f"train.num_steps={TRAIN_STEPS}",
+    per_step = per_step or PARTSEG_LAUNCHES_PER_TRAIN_STEP
+    cfg = apply_overrides(load_config(path), [
+        *overrides, 'train.ckpt_dir=""', f"train.num_steps={TRAIN_STEPS}",
         "train.log_every=1"])
     if not cfg.data.augment.enabled or cfg.train.schedule != "step":
         raise AssertionError("partseg training config: augmentation and the "
@@ -2496,10 +2654,9 @@ def phase_partseg_train():
                  for i in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = all_launches()
-    want = {k: v * TRAIN_STEPS
-            for k, v in PARTSEG_LAUNCHES_PER_TRAIN_STEP.items()}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if launches != want:
-        raise AssertionError(f"partseg train launches {launches} in "
+        raise AssertionError(f"{config} train launches {launches} in "
                              f"{TRAIN_STEPS} steps, expected {want}")
     auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
     for a in auxes:
@@ -2510,7 +2667,7 @@ def phase_partseg_train():
     if stuck or pipe.step != TRAIN_STEPS:
         raise AssertionError(f"partseg train step: unchanged {stuck}, "
                              f"step {pipe.step}")
-    emit("partseg_train_path", config="pointnet2_partseg_fixture_conv",
+    emit("partseg_train_path", config=config,
          batch=cfg.train.batch_size, steps=TRAIN_STEPS, launches=launches,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
          per_step=auxes, tensors_moved=len(start))
@@ -2542,7 +2699,7 @@ def phase_partseg_train():
     if worst > 1e-3:
         raise AssertionError(f"partseg gradient of {worst_name}: relative "
                              f"L2 difference {worst} from the plain run")
-    emit("train_vs_plain", config="pointnet2_partseg_fixture_conv",
+    emit("train_vs_plain", config=config,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          dropout="identity", loss=float(loss_k), plain_loss=float(loss_p),
          loss_rel_diff=rel_loss, worst_grad_rel_l2=worst,
@@ -2560,7 +2717,7 @@ def phase_partseg_train():
             < history[0]["loss"]:
         raise AssertionError(f"partseg train() loss did not fall: "
                              f"{[r['loss'] for r in history]}")
-    emit("train_entry_point", config="pointnet2_partseg_fixture_conv",
+    emit("train_entry_point", config=config,
          steps=8, loss_per_logged_step={r["step"]: r["loss"]
                                         for r in history},
          acc_per_logged_step={r["step"]: r["acc"] for r in history},
@@ -2712,11 +2869,11 @@ def scatter_call_row(vals, idx, num_rows):
     return row
 
 
-def point_kernel_rows(predict, step):
-    """What ``predict()`` hands ``fps_gather`` and the gather kernel (plain
-    gathers and groupings, in launch order) and what ``step()`` hands
-    ``scatter_rows``, each call timed on those tensors: (fps rows, gather
-    rows, scatter rows)."""
+def recorded_point_calls(predict, step):
+    """What ``predict()`` hands ``fps_gather`` and the gather kernel (in
+    launch order, each ("gather", args) or ("group", args)) and what
+    ``step()`` hands ``scatter_rows``, the point kernels running as they
+    are: (fps calls, gather calls, scatter calls)."""
     import torch
     from lisec_tpu_torch.ops.cuda import fps as fk
     from lisec_tpu_torch.ops.cuda import gather_rows as gr
@@ -2729,11 +2886,11 @@ def point_kernel_rows(predict, step):
         return fps_gather(points, mask, m)
 
     def rec_gather(src, idx):
-        calls["gather_rows"].append((gather_call_row, (src.detach(), idx)))
+        calls["gather_rows"].append(("gather", (src.detach(), idx)))
         return gather(src, idx)
 
     def rec_group(xyz, features, centers, idx):
-        calls["gather_rows"].append((grouping_call_row, (
+        calls["gather_rows"].append(("group", (
             xyz, None if features is None else features.detach(), centers,
             idx)))
         return group(xyz, features, centers, idx)
@@ -2748,9 +2905,18 @@ def point_kernel_rows(predict, step):
         predict_calls = {k: list(v) for k, v in calls.items()}
         calls["scatter_rows"].clear()
         step()
-    return ([fps_call_row(*c) for c in predict_calls["fps"]],
-            [row_fn(*c) for row_fn, c in predict_calls["gather_rows"]],
-            [scatter_call_row(*c) for c in calls["scatter_rows"]])
+    return (predict_calls["fps"], predict_calls["gather_rows"],
+            calls["scatter_rows"])
+
+
+def point_kernel_rows(predict, step):
+    """Each call of ``recorded_point_calls(predict, step)`` timed on the
+    tensors the path handed it: (fps rows, gather rows, scatter rows)."""
+    fps, gathers, scatters = recorded_point_calls(predict, step)
+    row_fn = {"gather": gather_call_row, "group": grouping_call_row}
+    return ([fps_call_row(*c) for c in fps],
+            [row_fn[kind](*c) for kind, c in gathers],
+            [scatter_call_row(*c) for c in scatters])
 
 
 def partseg_stage_ms(pipe, dev, runs=5):
@@ -2799,12 +2965,14 @@ def partseg_stage_ms(pipe, dev, runs=5):
 
 
 def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
-                         train_batch):
+                         train_batch, config="pointnet2_partseg_fixture_conv",
+                         calls=(2, 4, 3), groupings=2):
     """PointNet++ predict at batch 16 and 1 (from host numpy,
     device-resident, by stage), the train step at batch 16 and its parts,
     and every point-kernel call of a batch-16 predict (FPS, gathers) and
     of a train step's backward (scatters) on the tensors the path hands
-    it. Returns (fps rows, gather rows, scatter rows)."""
+    it: ``calls`` of each, ``groupings`` of the gathers fused groupings.
+    Returns (fps rows, gather rows, scatter rows)."""
     import torch
     from lisec_tpu_torch.api import infer
     from lisec_tpu_torch.training.losses import cross_entropy
@@ -2814,7 +2982,7 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
         dev = serve_pipe.device_batch(batch)
         with torch.no_grad():
             ms_dev = cuda_ms(lambda: serve_pipe.predict(dev), iters=10)
-        emit("partseg_predict", config="pointnet2_partseg_fixture_conv",
+        emit("partseg_predict", config=config,
              batch=b, ms_per_batch=ms, clouds_per_s=b * 1e3 / ms,
              device_resident_ms=ms_dev,
              device_resident_clouds_per_s=b * 1e3 / ms_dev,
@@ -2851,7 +3019,7 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
             if it >= 2:
                 for i, k in enumerate(parts):
                     parts[k] += ev[i].elapsed_time(ev[i + 1]) / 5
-    emit("partseg_train_step", config="pointnet2_partseg_fixture_conv",
+    emit("partseg_train_step", config=config,
          batch=b, ms_per_step=ms_step, clouds_per_s=b * 1e3 / ms_step,
          host_clock_ms_per_step=host_ms,
          host_clock_clouds_per_s=b * 1e3 / host_ms,
@@ -2862,11 +3030,108 @@ def phase_partseg_timing(serve_pipe, serve_cfg, train_pipe, train_cfg,
         lambda: partseg_loss_and_grads(pipe, train_batch))
     for kernel, per_call in zip(("fps", "gather_rows", "scatter_rows"), rows):
         for i, call in enumerate(per_call):
-            emit("partseg_kernel", kernel=kernel, call=i, **call)
-    if [len(r) for r in rows] != [2, 4, 3] or sum(
-            "centers" in r for r in rows[1]) != 2:
-        raise AssertionError(f"partseg kernel calls {[len(r) for r in rows]}")
+            emit("partseg_kernel", config=config, kernel=kernel, call=i,
+                 **call)
+    if [len(r) for r in rows] != list(calls) or sum(
+            "centers" in r for r in rows[1]) != groupings:
+        raise AssertionError(f"{config} kernel calls "
+                             f"{[len(r) for r in rows]}")
     return rows
+
+
+# -- PointNet++ MSG part segmentation ----------------------------------------
+
+PARTSEG_MSG_CFG = os.path.join(ROOT, "configs",
+                               "pointnet2_shapenetpart_msg.yaml")
+MSG_FIXTURE = ("data.fixture=true",)        # no ShapeNetPart files here
+# Five groupings (SA1 at radii 0.1, 0.2, 0.4; SA2 at 0.4, 0.8) and the two
+# feature propagations' gathers a predict; a step's backward scatters for
+# SA2's two groupings (SA1 groups xyz alone, which takes no gradient) and
+# the two propagations.
+PARTSEG_MSG_LAUNCHES_PER_PREDICT = {**PARTSEG_LAUNCHES_PER_PREDICT,
+                                    "gather_rows": 7}
+PARTSEG_MSG_LAUNCHES_PER_TRAIN_STEP = {**PARTSEG_MSG_LAUNCHES_PER_PREDICT,
+                                       "scatter_rows": 4, "threefry": 1}
+
+
+def msg_config():
+    from lisec_tpu_torch.config import apply_overrides, load_config
+    return apply_overrides(load_config(PARTSEG_MSG_CFG), list(MSG_FIXTURE))
+
+
+def phase_msg_kernel_check(serve_pipe, cfg, train_pipe, train_batch):
+    """Every FPS, grouping and gather of a full-width MSG predict at batch
+    16 (SA2's 0.8-radius grouping takes (16, 128, 128) ids over C = 320 +
+    3) and every scatter of a train step's backward, against their plain
+    versions on the very tensors the path hands them, bit for bit.
+    Returns the largest |d| by kernel."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import fps as fk
+    from lisec_tpu_torch.ops.cuda import gather_rows as gr
+    dev = serve_pipe.device_batch(partseg_batch(serve_pipe, cfg, 16))
+    fps, gathers, scatters = recorded_point_calls(
+        lambda: serve_pipe.predict(dev),
+        lambda: partseg_loss_and_grads(train_pipe, train_batch))
+    calls = {"fps": fps, "scatter_rows": scatters,
+             "gather_rows": [c for kind, c in gathers if kind == "gather"],
+             "group": [c for kind, c in gathers if kind == "group"]}
+    n_calls = {k: len(v) for k, v in calls.items()}
+    if n_calls != {"fps": 2, "gather_rows": 2, "group": 5,
+                   "scatter_rows": 4}:
+        raise AssertionError(f"msg kernel calls {n_calls}")
+    for i, (points, mask, m) in enumerate(calls["fps"]):
+        idx, new_xyz, new_mask = fk.fps_gather(points, mask, m)
+        torch.cuda.synchronize()
+        ref = fk.fps_gather_reference(points, mask, m)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((idx, new_xyz, new_mask), ref)):
+            raise AssertionError(f"msg fps {i} differs")
+        emit("kernel_check", kernel="fps", case=f"msg_sa{i}",
+             points=list(points.shape), samples=m, picks_equal=True,
+             new_xyz_and_mask_bit_equal=True)
+
+    def same_bits(a, b):
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(bits), b.view(bits))
+    for i, (xyz, feats, centers, idx) in enumerate(calls["group"]):
+        got = gr.group_and_decorate(xyz, feats, centers, idx)
+        torch.cuda.synchronize()
+        ref = gr.group_and_decorate_reference(xyz, feats, centers, idx)
+        if not same_bits(got, ref):
+            raise AssertionError(f"msg grouping {i}: "
+                                 f"{int((got != ref).sum())} elements differ")
+        emit("kernel_check", kernel="gather_rows", case=f"msg_group{i}",
+             xyz=list(xyz.shape), features=None if feats is None
+             else list(feats.shape), centers=list(centers.shape),
+             ids=list(idx.shape), bit_equal=True, max_abs_err=0.0)
+    for i, (src, idx) in enumerate(calls["gather_rows"]):
+        got = gr.gather_rows(src, idx)
+        torch.cuda.synchronize()
+        if not same_bits(got, gr.gather_rows_reference(src, idx)):
+            raise AssertionError(f"msg gather {i} differs")
+        emit("kernel_check", kernel="gather_rows", case=f"msg_fp_gather{i}",
+             src=list(src.shape), ids=list(idx.shape), bit_equal=True,
+             max_abs_err=0.0)
+    worst = {"fps": 0.0, "gather_rows": 0.0, "scatter_rows": 0.0}
+    for i, (vals, idx, num_rows) in enumerate(calls["scatter_rows"]):
+        got = gr.scatter_rows(vals, idx, num_rows=num_rows)
+        torch.cuda.synchronize()
+        again = gr.scatter_rows(vals, idx, num_rows=num_rows)
+        ref = gr.scatter_rows_reference(vals, idx, num_rows=num_rows)
+        err = float((got - ref).abs().max())
+        worst["scatter_rows"] = max(worst["scatter_rows"], err)
+        if not torch.equal(got, ref) or not torch.equal(got, again):
+            raise AssertionError(f"msg scatter {i}: max |d| {err}, or two "
+                                 "runs differ")
+        ok = (idx >= 0) & (idx < num_rows)
+        runs = (idx[:, 1:] == idx[:, :-1]).float().mean()
+        emit("kernel_check", kernel="scatter_rows", case=f"msg_step{i}",
+             vals=list(vals.shape), num_rows=num_rows,
+             rows_landed=int(ok.sum()),
+             share_of_ids_repeating_the_last=float(runs), bit_equal=True,
+             two_runs_identical=True, max_abs_err=err)
+    return worst
 
 
 # -- range segmentation: the paint and spread on new callers ----------------
@@ -5702,6 +5967,12 @@ def main() -> int:
     second_train = phase_train_path(
         "second_fixture_conv", SECOND_TRAIN_CFG, None,
         SECOND_LAUNCHES_PER_TRAIN_STEP)
+    fp_pipe, fp_cfg, fp_launches, fp_spread_err = phase_footprint_serving(
+        gen)
+    fp_step_err = phase_footprint_kernel_check()
+    fp_train = phase_train_path(
+        "second_footprint_conv", SECOND_FOOTPRINT_TRAIN_CFG, None,
+        SECOND_LAUNCHES_PER_TRAIN_STEP)
     timing = phase_timing(pipe, cfg)
     second_calls, second_paints = phase_second_timing(second_pipe,
                                                       second_cfg)
@@ -5709,6 +5980,11 @@ def main() -> int:
                                     train_pipe, train_cfg, train_batch)
     second_train_rows = phase_train_timing("second_fixture_conv",
                                            *second_train[:3])
+    fp_calls, fp_paints = phase_second_timing(fp_pipe, fp_cfg,
+                                              "second_kitti_footprint")
+    fp_train_rows = phase_train_timing("second_footprint_conv",
+                                       *fp_train[:3])
+    del fp_pipe
     partseg_cfg = load_config(PARTSEG_CFG)
     partseg_pipe = build_model(partseg_cfg)        # weights from seed 0
     point_err = phase_point_kernel_check(partseg_pipe, partseg_cfg, gen)
@@ -5719,6 +5995,25 @@ def main() -> int:
     fps_rows, gather_rows_, scatter_rows_ = phase_partseg_timing(
         partseg_pipe, partseg_cfg, *partseg_train[:3])
     partseg_train_launches = partseg_train[3]
+    msg_cfg = msg_config()
+    msg_pipe = build_model(msg_cfg)                # weights from seed 0
+    msg_launches = phase_partseg_serving(
+        msg_pipe, msg_cfg, "pointnet2_shapenetpart_msg",
+        PARTSEG_MSG_LAUNCHES_PER_PREDICT)
+    phase_partseg_tiny_vs_cpu("pointnet2_partseg_tiny_msg",
+                              ("model.params.msg=true",))
+    msg_train = phase_partseg_train(
+        PARTSEG_MSG_CFG, MSG_FIXTURE, "pointnet2_shapenetpart_msg",
+        PARTSEG_MSG_LAUNCHES_PER_TRAIN_STEP)
+    msg_err = phase_msg_kernel_check(msg_pipe, msg_cfg, msg_train[0],
+                                     msg_train[2])
+    msg_rows = phase_partseg_timing(
+        msg_pipe, msg_cfg, *msg_train[:3], "pointnet2_shapenetpart_msg",
+        calls=(2, 7, 4), groupings=5)
+    msg_train_launches = msg_train[3]
+    if msg_launches != PARTSEG_MSG_LAUNCHES_PER_PREDICT:
+        raise AssertionError(f"msg predict launches {msg_launches}")
+    del msg_pipe, msg_train
     rangeseg_cfg = rangeseg_config()
     rangeseg_pipe = build_model(rangeseg_cfg)      # weights from seed 0
     rangeseg_err = phase_rangeseg_kernel_check(rangeseg_pipe, rangeseg_cfg)
@@ -5840,6 +6135,16 @@ def main() -> int:
                 "subm_inverse_max_abs_err": subm_row["max_abs_err"],
                 "subm_inverse": subm_row}
                if mod is sp else {}),
+            # SECOND with the footprint downsample: its predict's and
+            # train step's calls beside dilate's.
+            "launches_per_footprint_predict": fp_launches[name],
+            "launches_per_footprint_train_step":
+                fp_train[3][name] / TRAIN_STEPS,
+            "footprint_max_abs_err": fp_step_err[name],
+            "footprint_train_step": summed(fp_train_rows[name])
+            if fp_train_rows[name] else None,
+            **({"footprint_predict": summed(fp_paints)}
+               if mod is sp else {}),
             "launches_per_voxel_buffer_train_step":
                 vb_train[3][name] / TRAIN_STEPS,
             "voxel_buffer_train_step": summed(vb_train_rows[name])
@@ -5855,19 +6160,25 @@ def main() -> int:
         **written(name),
         "calls": second_calls,
         "second_train_step": summed(second_train_rows[name]),
+        "launches_per_footprint_predict": fp_launches[name],
+        "launches_per_footprint_train_step": fp_train[3][name] / TRAIN_STEPS,
+        "footprint_max_abs_err": max(fp_spread_err, fp_step_err[name]),
+        "footprint_predict": summed(fp_calls),
+        "footprint_calls": fp_calls,
+        "footprint_train_step": summed(fp_train_rows[name]),
         **rangeseg(name)})
     # The point kernels: FPS and the gathers as the calls of one PointNet++
     # predict at batch 16 together, the scatters as the three of one train
     # step at batch 16 (the gathers' backward). The calls of a PointNet2Cls
     # predict at batch 24 (the scatter's: of its train step) beside them.
-    for info, rows, launches_, err_, cls in (
+    for info, rows, launches_, err_, cls, msg in (
             (fk.KERNEL_INFO, fps_rows, partseg_launches["fps"],
-             point_err["fps"], cls_rows[0]),
+             point_err["fps"], cls_rows[0], msg_rows[0]),
             (gr.GATHER_INFO, gather_rows_, partseg_launches["gather_rows"],
-             point_err["gather_rows"], cls_rows[1]),
+             point_err["gather_rows"], cls_rows[1], msg_rows[1]),
             (gr.SCATTER_INFO, scatter_rows_,
              partseg_train_launches["scatter_rows"],
-             point_err["scatter_rows"], cls_rows[2])):
+             point_err["scatter_rows"], cls_rows[2], msg_rows[2])):
         name = info["name"]
         kernels.append({
             **info, "launches": launches_, "max_abs_err": err_,
@@ -5885,6 +6196,16 @@ def main() -> int:
             ("cls_train_step" if info is gr.SCATTER_INFO
              else "cls_predict"): summed(cls),
             "cls_calls": cls,
+            # PointNet++ MSG part seg: its predict's (the scatter's: its
+            # train step's) calls.
+            "launches_per_msg_predict":
+                PARTSEG_MSG_LAUNCHES_PER_PREDICT[name],
+            "launches_per_msg_train_step":
+                msg_train_launches[name] / TRAIN_STEPS,
+            "msg_max_abs_err": msg_err[name],
+            ("msg_train_step" if info is gr.SCATTER_INFO
+             else "msg_predict"): summed(msg),
+            "msg_calls": msg,
             **({"launches_per_gather_points": 1,
                 "gather_points_max_abs_err":
                     gather_points_row["max_abs_err"],
@@ -5904,6 +6225,8 @@ def main() -> int:
                                 "library_ms", "device_ms", "device_parts",
                                 "torch_rand_ms", "shape")},
         "launches_per_train_step": THREEFRY_PER_TRAIN_STEP,
+        "launches_per_msg_train_step":
+            msg_train_launches["threefry"] / TRAIN_STEPS,
         "launches_per_predict": 0,
         "cls_calls": {k: v for k, v in threefry_rows.items()
                       if k != "partseg_head"}})

@@ -155,11 +155,26 @@ def reset_parameters(model: nn.Module, seed: int) -> None:
         convert_flax_arrays(flat, getattr(model, "FLAX_KEYS", None)))
 
 
+def cpu_excess_precision(t: torch.Tensor) -> torch.Tensor:
+    """A conv operand ``t``, already in the compute type, as the jitted JAX
+    program computes with it when a cast to f32 is all that reads the
+    conv's result (a BatchNorm's statistics and normalisation). XLA's CPU
+    backend runs a bf16 convolution in f32 on the bf16 values and, since it
+    allows excess precision, drops the f32 -> bf16 -> f32 casts that
+    follow, so the BatchNorm reads the unrounded f32 sums; the port does
+    the same on the CPU by widening a bf16 operand to f32. On the card the
+    operand stays as it is (cuDNN rounds the result to bf16)."""
+    if t.device.type == "cpu" and t.dtype == torch.bfloat16:
+        return t.float()
+    return t
+
+
 class ConvBNRelu(nn.Module):
     """2D conv (or transposed conv) + BatchNorm + ReLU, ``SAME`` padded,
     with a square kernel and a stride that is one int or an (H, W) pair.
 
-    BatchNorm is :func:`batch_norm`, in f32 (f64 for an f64 model).
+    BatchNorm is :func:`batch_norm`, in f32 (f64 for an f64 model); on
+    the CPU a bf16 conv hands it f32 sums (:func:`cpu_excess_precision`).
 
     The conv weight is (out, in, k, k); the transposed conv's is
     (in, out, k, k), already spatially flipped, so that
@@ -181,8 +196,8 @@ class ConvBNRelu(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        w = self.weight.to(self.dtype)
+        x = cpu_excess_precision(x.to(self.dtype))
+        w = cpu_excess_precision(self.weight.to(self.dtype))
         if self.transpose:
             x = conv_transpose_same(x, w, self.stride)
         else:

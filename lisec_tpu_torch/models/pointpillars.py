@@ -159,8 +159,14 @@ class AnchorHead(nn.Module):
         x = x.to(self.dtype)
 
         def run(conv, k):
-            y = F.conv2d(x, conv.weight.to(self.dtype),
-                         conv.bias.to(self.dtype))
+            kern, bias = conv.weight.to(self.dtype), conv.bias.to(self.dtype)
+            if x.device.type == "cpu" and self.dtype == torch.bfloat16:
+                # flax adds the bias to the conv's result in bf16, and
+                # XLA's CPU program rounds that result first; PyTorch's
+                # CPU conv would add it before rounding.
+                y = F.conv2d(x, kern) + bias.view(-1, 1, 1)
+            else:
+                y = F.conv2d(x, kern, bias)
             # NHWC before the reshape keeps the (y, x, anchor) order.
             return y.permute(0, 2, 3, 1).reshape(b, h * w * a, k).float()
         return {"cls": run(self.cls, self.num_classes),

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lisec_tpu_torch.models.common import (
-    BN_EPS, BN_MOMENTUM, batch_norm, reset_parameters)
+    BN_EPS, BN_MOMENTUM, batch_norm, cpu_excess_precision, reset_parameters)
 from lisec_tpu_torch.models.pointpillars import (
     FOCAL_PRIOR, AnchorHead, BEVBackbone)
 from lisec_tpu_torch.ops.scatter import segment_sum_dense
@@ -100,7 +100,8 @@ class DenseConv3D(nn.Module):
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         """x (B, Cin, nz, ny, nx), active (B, 1, nz', ny', nx') of the
         OUTPUT grid, 0 or 1 in the compute dtype."""
-        h = F.conv3d(x.to(self.dtype), self.weight.to(self.dtype),
+        h = F.conv3d(cpu_excess_precision(x.to(self.dtype)),
+                     cpu_excess_precision(self.weight.to(self.dtype)),
                      stride=self.stride, padding=1)
         hf = h.float()
         if self.training:
