@@ -37,6 +37,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from lisec_tpu_torch.utils.profiling import span
+
 WIRE_LEVELS = 65535  # int16 full scale
 
 _WIRE_KEYS = ("points_q16", "num_points", "wire_lo", "wire_scale")
@@ -54,47 +56,48 @@ def pack_points_q16(points: np.ndarray,
       wire_scale  (C,)      f32   — per-channel dequant step
 
     Padding slots take code -32768 (they decode to ``wire_lo`` and are
-    masked out on the card).
+    masked out on the card). Under a profiler, the span ``wire.pack``.
     """
-    points = np.asarray(points, np.float32)
-    mask = np.asarray(point_mask, bool)
-    if points.ndim != 3:
-        raise ValueError(f"expected (B, N, C) points, got {points.shape}")
-    b, n, c = points.shape
+    with span("wire.pack"):
+        points = np.asarray(points, np.float32)
+        mask = np.asarray(point_mask, bool)
+        if points.ndim != 3:
+            raise ValueError(f"expected (B, N, C) points, got {points.shape}")
+        b, n, c = points.shape
 
-    counts = mask.sum(axis=1).astype(np.int32)
-    prefix = mask == (np.arange(n)[None, :] < counts[:, None])
-    if not prefix.all():
-        # Stable-compact the valid points to the row prefix (keeps the
-        # voxelizer's deterministic budget-overflow order).
-        packed = np.zeros_like(points)
-        for i in range(b):
-            sel = points[i][mask[i]]
-            packed[i, : len(sel)] = sel
-        points = packed
+        counts = mask.sum(axis=1).astype(np.int32)
+        prefix = mask == (np.arange(n)[None, :] < counts[:, None])
+        if not prefix.all():
+            # Stable-compact the valid points to the row prefix (keeps the
+            # voxelizer's deterministic budget-overflow order).
+            packed = np.zeros_like(points)
+            for i in range(b):
+                sel = points[i][mask[i]]
+                packed[i, : len(sel)] = sel
+            points = packed
 
-    valid = np.arange(n)[None, :] < counts[:, None]
-    if valid.any():
-        big = np.where(valid[..., None], points, np.inf)
-        small = np.where(valid[..., None], points, -np.inf)
-        lo = big.min(axis=(0, 1))
-        hi = small.max(axis=(0, 1))
-    else:
-        lo = np.zeros((c,), np.float32)
-        hi = np.ones((c,), np.float32)
-    lo = lo.astype(np.float32)
-    span = np.maximum((hi - lo).astype(np.float32), 1e-6)
-    scale = span / WIRE_LEVELS
+        valid = np.arange(n)[None, :] < counts[:, None]
+        if valid.any():
+            big = np.where(valid[..., None], points, np.inf)
+            small = np.where(valid[..., None], points, -np.inf)
+            lo = big.min(axis=(0, 1))
+            hi = small.max(axis=(0, 1))
+        else:
+            lo = np.zeros((c,), np.float32)
+            hi = np.ones((c,), np.float32)
+        lo = lo.astype(np.float32)
+        width = np.maximum((hi - lo).astype(np.float32), 1e-6)
+        scale = width / WIRE_LEVELS
 
-    q = np.rint((points - lo) / scale) - 32768.0
-    q = np.clip(q, -32768, 32767).astype(np.int16)
-    q[~valid] = -32768
-    return {
-        "points_q16": q,
-        "num_points": counts,
-        "wire_lo": lo,
-        "wire_scale": scale.astype(np.float32),
-    }
+        q = np.rint((points - lo) / scale) - 32768.0
+        q = np.clip(q, -32768, 32767).astype(np.int16)
+        q[~valid] = -32768
+        return {
+            "points_q16": q,
+            "num_points": counts,
+            "wire_lo": lo,
+            "wire_scale": scale.astype(np.float32),
+        }
 
 
 def _flush_subnormal(x: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ from lisec_tpu_torch.ops.sparse_conv import (
     build_scatter_rulebook, sparse_conv3d_spread, submanifold_sources)
 from lisec_tpu_torch.parallel.mesh import global_sum
 from lisec_tpu_torch.utils import prng
+from lisec_tpu_torch.utils.profiling import span
 
 
 NUM_OFFSETS = 27            # every sparse conv here has 3 x 3 x 3 taps
@@ -209,7 +210,9 @@ class SparseMiddleEncoder(nn.Module):
                 num_voxels: torch.Tensor) -> torch.Tensor:
         """feats (B, V, C), coords (B, V, 3) int32 [z, y, x] sorted by
         cell id, num_voxels (B,) -> BEV (B, nz/8 * C_last, ny/8, nx/8)
-        with channel index ``z * C_last + c``."""
+        with channel index ``z * C_last + c``. Under a profiler, one span
+        ``rulebook`` a rulebook built (a level's submanifold rulebook
+        and its inverse; a downsample's output set and rulebook)."""
         b, v, _ = feats.shape
         dev = feats.device
         grid = self.grid
@@ -222,10 +225,12 @@ class SparseMiddleEncoder(nn.Module):
         for level in range(self.dense_from):
             # Submanifold convs at this resolution (out set = in set).
             spec = SparseConvSpec((3, 3, 3), (1, 1, 1), (1, 1, 1), grid)
-            srb = build_scatter_rulebook(cur_coords, cur_num, cur_coords,
-                                         cur_num, spec)
-            # Its inverse, for the spread, once for the level's layers.
-            sources = submanifold_sources(srb)
+            with span("rulebook", dev):
+                srb = build_scatter_rulebook(cur_coords, cur_num,
+                                             cur_coords, cur_num, spec)
+                # Its inverse, for the spread, once for the level's
+                # layers.
+                sources = submanifold_sources(srb)
             for _ in range(self.subm_per_level):
                 x = next(layers)(x, srb, cur_valid, sources)
             if level < n_levels - 1:
@@ -236,10 +241,12 @@ class SparseMiddleEncoder(nn.Module):
                 build = (build_footprint_coords
                          if self.downsample == "footprint"
                          else build_output_coords)
-                out_coords, out_num = build(cur_coords, cur_num, dspec,
-                                            max_out=budget)
-                dsrb = build_scatter_rulebook(cur_coords, cur_num,
-                                              out_coords, out_num, dspec)
+                with span("rulebook", dev):
+                    out_coords, out_num = build(cur_coords, cur_num, dspec,
+                                                max_out=budget)
+                    dsrb = build_scatter_rulebook(cur_coords, cur_num,
+                                                  out_coords, out_num,
+                                                  dspec)
                 out_valid = torch.arange(budget, device=dev) \
                     < out_num[:, None]
                 x = next(layers)(x, dsrb, out_valid)

@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from lisec_tpu_torch.ops.rotated_iou import rotated_iou_bev
+from lisec_tpu_torch.utils.profiling import span
 
 
 class NMSResult(NamedTuple):
@@ -72,79 +73,91 @@ def _run_streams(alive, top_scores, top_boxes, top_labels, half_diag, *,
     out_valid = torch.zeros((s, nms_post), dtype=torch.bool, device=dev)
     pad_col = torch.zeros((s, 1), dtype=torch.long, device=dev)
 
-    while True:
-        active = cont & (j < nms_post)
-        if not bool(active.any()):
-            break
-        if select == "scan":
-            # Candidates are score-sorted, so this round's top-`block`
-            # alive set is the first `block` alive slots in index order.
-            # Unfilled slots read slot 0 and are masked to -inf.
-            pos = torch.cumsum(alive.long(), dim=1)
-            slot = torch.where(alive & (pos <= block), pos - 1, block)
-            bi = torch.zeros((s, block + 1), dtype=torch.long,
-                             device=dev).scatter_(
-                1, slot, ar_pre.expand(s, -1))[:, :block]
-            filled = ar_block[None, :] < pos[:, -1:]
-            bs = torch.where(filled, torch.gather(top_scores, 1, bi),
-                             neg_inf)
-        else:
-            bs, bi = top_k(torch.where(alive, top_scores, neg_inf), block)
-        bok = bs > score_threshold
-        bboxes = _rows(top_boxes, bi)                      # (S, block, 7)
-        blabels = torch.gather(top_labels, 1, bi)
+    # The host waits for the card once a round to learn whether any
+    # stream goes on.
+    active = cont & (j < nms_post)
+    with span("nms.wait"):
+        go = bool(active.any())
+    while go:
+        with span("nms.round"):
+            if select == "scan":
+                # Candidates are score-sorted, so this round's
+                # top-`block` alive set is the first `block` alive slots
+                # in index order. Unfilled slots read slot 0 and are
+                # masked to -inf.
+                pos = torch.cumsum(alive.long(), dim=1)
+                slot = torch.where(alive & (pos <= block), pos - 1, block)
+                bi = torch.zeros((s, block + 1), dtype=torch.long,
+                                 device=dev).scatter_(
+                    1, slot, ar_pre.expand(s, -1))[:, :block]
+                filled = ar_block[None, :] < pos[:, -1:]
+                bs = torch.where(filled, torch.gather(top_scores, 1, bi),
+                                 neg_inf)
+            else:
+                bs, bi = top_k(torch.where(alive, top_scores, neg_inf), block)
+            bok = bs > score_threshold
+            bboxes = _rows(top_boxes, bi)                      # (S, block, 7)
+            blabels = torch.gather(top_labels, 1, bi)
 
-        if full:
-            m = _pair_iou(bboxes[:, :, None, :], top_boxes[:, None, :, :])
-            near_idx = ar_pre.expand(s, block, pre)
-            near_ok = blabels[:, :, None] == top_labels[:, None, :]
-        else:
-            # Circle prefilter: IoU > 0 needs the centres closer than the
-            # sum of half-diagonals; keep the k_near nearest same-class.
-            d2 = ((bboxes[:, :, None, 0] - top_boxes[:, None, :, 0]) ** 2
-                  + (bboxes[:, :, None, 1] - top_boxes[:, None, :, 1]) ** 2)
-            rad = (torch.gather(half_diag, 1, bi)[:, :, None]
-                   + half_diag[:, None, :])
-            near = ((d2 < rad * rad)
-                    & (blabels[:, :, None] == top_labels[:, None, :]))
-            _, near_idx = top_k(torch.where(near, -d2, neg_inf), k_near)
-            near_ok = torch.gather(near, 2, near_idx)
-            m = _pair_iou(bboxes[:, :, None, :], _rows(top_boxes, near_idx))
+            if full:
+                m = _pair_iou(bboxes[:, :, None, :],
+                              top_boxes[:, None, :, :])
+                near_idx = ar_pre.expand(s, block, pre)
+                near_ok = blabels[:, :, None] == top_labels[:, None, :]
+            else:
+                # Circle prefilter: IoU > 0 needs the centres closer than
+                # the sum of half-diagonals; keep the k_near nearest
+                # same-class.
+                dx = bboxes[:, :, None, 0] - top_boxes[:, None, :, 0]
+                dy = bboxes[:, :, None, 1] - top_boxes[:, None, :, 1]
+                d2 = dx ** 2 + dy ** 2
+                rad = (torch.gather(half_diag, 1, bi)[:, :, None]
+                       + half_diag[:, None, :])
+                near = ((d2 < rad * rad)
+                        & (blabels[:, :, None] == top_labels[:, None, :]))
+                _, near_idx = top_k(torch.where(near, -d2, neg_inf), k_near)
+                near_ok = torch.gather(near, 2, near_idx)
+                m = _pair_iou(bboxes[:, :, None, :],
+                              _rows(top_boxes, near_idx))
 
-        mb = _pair_iou(bboxes[:, :, None, :], bboxes[:, None, :, :])
-        same = blabels[:, :, None] == blabels[:, None, :]
-        sup_in = (mb > iou_threshold) & same               # j suppresses i
+            mb = _pair_iou(bboxes[:, :, None, :], bboxes[:, None, :, :])
+            same = blabels[:, :, None] == blabels[:, None, :]
+            sup_in = (mb > iou_threshold) & same               # j suppresses i
 
-        emitted = torch.zeros((s, block), dtype=torch.bool, device=dev)
-        for i in range(block):
-            hit = (emitted & sup_in[:, :, i]).any(dim=1)
-            emitted[:, i] = bok[:, i] & ~hit
+            emitted = torch.zeros((s, block), dtype=torch.bool, device=dev)
+            for i in range(block):
+                hit = (emitted & sup_in[:, :, i]).any(dim=1)
+                emitted[:, i] = bok[:, i] & ~hit
 
-        # Emitted members kill their overlaps and themselves.
-        kill = near_ok & (m > iou_threshold) & emitted[:, :, None]
-        tgt = torch.cat([torch.where(kill, near_idx, pre).reshape(s, -1),
-                         torch.where(emitted, bi, pre)], dim=1)
-        killed = torch.zeros((s, pre + 1), dtype=torch.bool,
-                             device=dev).scatter_(1, tgt, True)
-        new_alive = alive & ~killed[:, :pre]
+            # Emitted members kill their overlaps and themselves.
+            kill = near_ok & (m > iou_threshold) & emitted[:, :, None]
+            tgt = torch.cat([torch.where(kill, near_idx, pre).reshape(s, -1),
+                             torch.where(emitted, bi, pre)], dim=1)
+            killed = torch.zeros((s, pre + 1), dtype=torch.bool,
+                                 device=dev).scatter_(1, tgt, True)
+            new_alive = alive & ~killed[:, :pre]
 
-        # Append this round's emissions in score order.
-        pos = j[:, None] + torch.cumsum(emitted.long(), dim=1) - 1
-        write = emitted & (pos < nms_post)
-        slot = torch.where(write, pos, nms_post)
-        new_idx = torch.cat([out_idx, pad_col], 1).scatter_(
-            1, slot, bi)[:, :nms_post]
-        new_valid = torch.cat([out_valid, pad_col.bool()], 1).scatter_(
-            1, slot, True)[:, :nms_post]
+            # Append this round's emissions in score order.
+            pos = j[:, None] + torch.cumsum(emitted.long(), dim=1) - 1
+            write = emitted & (pos < nms_post)
+            slot = torch.where(write, pos, nms_post)
+            new_idx = torch.cat([out_idx, pad_col], 1).scatter_(
+                1, slot, bi)[:, :nms_post]
+            new_valid = torch.cat([out_valid, pad_col.bool()], 1).scatter_(
+                1, slot, True)[:, :nms_post]
 
-        act = active[:, None]
-        alive = torch.where(act, new_alive, alive)
-        out_idx = torch.where(act, new_idx, out_idx)
-        out_valid = torch.where(act, new_valid, out_valid)
-        j = torch.where(active, j + write.sum(dim=1), j)
-        # A block member below the threshold means every remaining
-        # candidate is too: stopping is exactly equivalent to going on.
-        cont = torch.where(active, bok[:, block - 1], cont)
+            act = active[:, None]
+            alive = torch.where(act, new_alive, alive)
+            out_idx = torch.where(act, new_idx, out_idx)
+            out_valid = torch.where(act, new_valid, out_valid)
+            j = torch.where(active, j + write.sum(dim=1), j)
+            # A block member below the threshold means every remaining
+            # candidate is too: stopping is exactly equivalent to going
+            # on.
+            cont = torch.where(active, bok[:, block - 1], cont)
+            active = cont & (j < nms_post)
+            with span("nms.wait"):
+                go = bool(active.any())
     return out_idx, out_valid
 
 
@@ -171,49 +184,52 @@ def rotated_nms(
     its k_near nearest same-class candidates (0 = full rows);
     ``select`` is "topk" (masked top-k) or "scan" (first alive slots);
     ``class_parallel`` > 1 (the class count) runs one stream per class
-    and merges them by score.
+    and merges them by score. Under a profiler, the span ``nms``, and in
+    it one ``nms.round`` a round and ``nms.wait`` where the host waits
+    for the card to learn whether another round runs.
     """
     if select not in ("topk", "scan"):
         raise ValueError(f"select must be 'topk' or 'scan', got {select!r}")
-    b, a = scores.shape
-    nms_pre = min(nms_pre, a)
-    block = min(block, nms_pre)
-    full = k_near <= 0 or k_near >= nms_pre
-    k_near = nms_pre if full else k_near
+    with span("nms", scores.device):
+        b, a = scores.shape
+        nms_pre = min(nms_pre, a)
+        block = min(block, nms_pre)
+        full = k_near <= 0 or k_near >= nms_pre
+        k_near = nms_pre if full else k_near
 
-    top_scores, order = top_k(scores, nms_pre)
-    top_boxes = _rows(boxes, order)
-    top_labels = torch.gather(labels, 1, order)
-    alive = top_scores > score_threshold
-    half_diag = 0.5 * torch.hypot(top_boxes[..., 3], top_boxes[..., 4])
-    kw = dict(iou_threshold=iou_threshold, score_threshold=score_threshold,
-              block=block, k_near=k_near, full=full, select=select,
-              nms_post=nms_post)
+        top_scores, order = top_k(scores, nms_pre)
+        top_boxes = _rows(boxes, order)
+        top_labels = torch.gather(labels, 1, order)
+        alive = top_scores > score_threshold
+        half_diag = 0.5 * torch.hypot(top_boxes[..., 3], top_boxes[..., 4])
+        kw = dict(iou_threshold=iou_threshold, score_threshold=score_threshold,
+                  block=block, k_near=k_near, full=full, select=select,
+                  nms_post=nms_post)
 
-    if class_parallel > 1:
-        cls_ids = torch.arange(class_parallel, device=scores.device)
-        alive_c = alive[:, None, :] & (top_labels[:, None, :]
-                                       == cls_ids[None, :, None])
+        if class_parallel > 1:
+            cls_ids = torch.arange(class_parallel, device=scores.device)
+            alive_c = alive[:, None, :] & (top_labels[:, None, :]
+                                           == cls_ids[None, :, None])
 
-        def rep(x):
-            return x.repeat_interleave(class_parallel, dim=0)
-        oi, ov = _run_streams(
-            alive_c.reshape(b * class_parallel, -1), rep(top_scores),
-            rep(top_boxes), rep(top_labels), rep(half_diag), **kw)
-        oi = oi.reshape(b, -1)
-        ov = ov.reshape(b, -1)
-        # Each stream already descends, so the top nms_post by score is
-        # the global greedy output in the global emission order.
-        sc = torch.where(ov, torch.gather(top_scores, 1, oi),
-                         float("-inf"))
-        _, mi = top_k(sc, nms_post)
-        out_idx = torch.gather(oi, 1, mi)
-        out_valid = torch.gather(ov, 1, mi)
-    else:
-        out_idx, out_valid = _run_streams(
-            alive, top_scores, top_boxes, top_labels, half_diag, **kw)
+            def rep(x):
+                return x.repeat_interleave(class_parallel, dim=0)
+            oi, ov = _run_streams(
+                alive_c.reshape(b * class_parallel, -1), rep(top_scores),
+                rep(top_boxes), rep(top_labels), rep(half_diag), **kw)
+            oi = oi.reshape(b, -1)
+            ov = ov.reshape(b, -1)
+            # Each stream already descends, so the top nms_post by score is
+            # the global greedy output in the global emission order.
+            sc = torch.where(ov, torch.gather(top_scores, 1, oi),
+                             float("-inf"))
+            _, mi = top_k(sc, nms_post)
+            out_idx = torch.gather(oi, 1, mi)
+            out_valid = torch.gather(ov, 1, mi)
+        else:
+            out_idx, out_valid = _run_streams(
+                alive, top_scores, top_boxes, top_labels, half_diag, **kw)
 
-    vb = torch.where(out_valid[..., None], _rows(top_boxes, out_idx), 0.0)
-    vs = torch.where(out_valid, torch.gather(top_scores, 1, out_idx), 0.0)
-    vl = torch.where(out_valid, torch.gather(top_labels, 1, out_idx), -1)
-    return NMSResult(vb, vs, vl.to(torch.int32), out_valid)
+        vb = torch.where(out_valid[..., None], _rows(top_boxes, out_idx), 0.0)
+        vs = torch.where(out_valid, torch.gather(top_scores, 1, out_idx), 0.0)
+        vl = torch.where(out_valid, torch.gather(top_labels, 1, out_idx), -1)
+        return NMSResult(vb, vs, vl.to(torch.int32), out_valid)

@@ -31,6 +31,7 @@ from lisec_tpu_torch.parallel.mesh import (
     use_mesh)
 from lisec_tpu_torch.training.loop import step_key
 from lisec_tpu_torch.training.optim import make_optimizer
+from lisec_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -210,9 +211,17 @@ class Pipeline:
         codes, counts and bounds cross to the device as they are, about
         half the bytes of ``infer``'s f32 points and bool mask, and are
         dequantized there. Pack on the host with
-        ``data.wire.pack_points_q16``."""
+        ``data.wire.pack_points_q16``. Under a profiler, the span
+        ``infer`` holds the request: ``wire.h2d`` (the copy to the
+        device), ``wire.unpack`` (the dequantization) and ``predict``'s
+        spans."""
         self.model.eval()
-        return self.predict(unpack_points_q16(self._whole_batch(packed)))
+        with span("infer"):
+            with span("wire.h2d", self.device):
+                staged = self._whole_batch(packed)
+            with span("wire.unpack", self.device):
+                batch = unpack_points_q16(staged)
+            return self.predict(batch)
 
     def eval_outputs(self, split: str, max_batches: int = 0
                      ) -> Iterator[Tuple[Dict[str, np.ndarray],

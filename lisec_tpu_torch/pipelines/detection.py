@@ -39,6 +39,7 @@ from lisec_tpu_torch.training.assigner import (
     assign_targets_windowed_batched, generate_anchors)
 from lisec_tpu_torch.training.losses import (
     sigmoid_focal_loss, sin_difference, smooth_l1)
+from lisec_tpu_torch.utils.profiling import span
 
 register_model("pointpillars")(PointPillarsFused)
 register_model("second")(SECONDNet)
@@ -229,30 +230,37 @@ class PointPillarsPipeline(Pipeline):
 
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        preds = self.model(*self._model_args(batch))
+        """Boxes, scores, labels and ``valid`` of a batch on the device.
+        Under a profiler, the spans ``predict.forward`` (the model, with
+        SECOND's voxelizer), ``predict.decode`` (score preselect, decode,
+        direction bins) and ``nms``."""
+        with span("predict.forward", self.device):
+            preds = self.model(*self._model_args(batch))
         budget = self.cfg.budget
 
-        # Preselect nms_pre candidates by score before any decode math.
-        scores_all = torch.sigmoid(preds["cls"])               # (B, A, C)
-        scores = scores_all.max(dim=-1).values
-        npre = min(budget.nms_pre, scores.shape[1])
-        _, idx = top_k(scores, npre)                           # (B, P)
+        with span("predict.decode", self.device):
+            # Preselect nms_pre candidates by score before any decode
+            # math.
+            scores_all = torch.sigmoid(preds["cls"])           # (B, A, C)
+            scores = scores_all.max(dim=-1).values
+            npre = min(budget.nms_pre, scores.shape[1])
+            _, idx = top_k(scores, npre)                       # (B, P)
 
-        def take(x):
-            return torch.gather(
-                x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
-        sel_scores_all = take(scores_all)
-        boxes = decode_boxes(take(preds["box"]), self.anchors[idx])
+            def take(x):
+                return torch.gather(
+                    x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+            sel_scores_all = take(scores_all)
+            boxes = decode_boxes(take(preds["box"]), self.anchors[idx])
 
-        # Resolve yaw with the direction bin: mod(yaw, pi) selects the
-        # in-half angle, the bin picks the half.
-        dir_bin = take(preds["dir"]).argmax(dim=-1)
-        yaw = torch.remainder(boxes[..., 6], math.pi)
-        yaw = torch.where(dir_bin == 1, yaw, yaw - math.pi)
-        boxes = torch.cat([boxes[..., :6], yaw[..., None]], dim=-1)
+            # Resolve yaw with the direction bin: mod(yaw, pi) selects the
+            # in-half angle, the bin picks the half.
+            dir_bin = take(preds["dir"]).argmax(dim=-1)
+            yaw = torch.remainder(boxes[..., 6], math.pi)
+            yaw = torch.where(dir_bin == 1, yaw, yaw - math.pi)
+            boxes = torch.cat([boxes[..., :6], yaw[..., None]], dim=-1)
 
-        sel_scores = sel_scores_all.max(dim=-1).values
-        labels = sel_scores_all.argmax(dim=-1).to(torch.int32)
+            sel_scores = sel_scores_all.max(dim=-1).values
+            labels = sel_scores_all.argmax(dim=-1).to(torch.int32)
 
         nms = rotated_nms(
             boxes, sel_scores, labels,

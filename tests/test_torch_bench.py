@@ -8,6 +8,7 @@ for every model of the port. The benchmark itself measures on the card
 only: here it must raise before it prints anything.
 """
 
+import json
 import os
 
 import jax
@@ -23,7 +24,7 @@ from lisec_tpu.config import apply_overrides as jax_apply_overrides
 from lisec_tpu.config import load_config as jax_load_config
 from lisec_tpu_torch import bench_lib, cli, ops
 from lisec_tpu_torch.config import apply_overrides
-from lisec_tpu_torch.utils import Timer, device_sync, trace
+from lisec_tpu_torch.utils import clear_spans, span, spans, trace
 from lisec_tpu_torch.weights import to_flax_arrays
 
 torch.set_num_threads(1)
@@ -154,23 +155,34 @@ def test_record_has_the_jax_keys(monkeypatch, weights_path):
 
 
 def test_timer_and_device_sync_on_cpu_tensors(tmp_path):
-    t = Timer()
-    out = {}
-    for i in range(3):
-        with t("matmul", fence=out):
-            out["y"] = torch.ones(64, 64) @ torch.ones(64, 64)
-    with t("nothing"):
-        pass
-    summary = t.summary()
-    assert set(summary) == {"matmul", "nothing"}
-    assert t.counts == {"matmul": 3, "nothing": 1}
-    assert all(v >= 0.0 for v in summary.values())
-    assert summary["matmul"] == pytest.approx(1e3 * t.totals["matmul"] / 3)
-    device_sync({"a": [torch.zeros(2), (torch.ones(1), 3)], "b": None})
-    device_sync(None)
+    """The JAX package's stage timer and device fence are the port's
+    spans: under ``trace`` a span times its stage on the host and, given
+    a device, on that device's stream (the host's time on the CPU), and
+    ``spans()`` reads them after fencing the card's events."""
+    clear_spans()
     with trace(str(tmp_path / "prof")):
-        torch.ones(8).sum()
+        for _ in range(3):
+            with span("matmul", "cpu"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("nothing"):
+            pass
+    with open(tmp_path / "prof" / "spans.json") as f:
+        written = json.load(f)
+    assert written == spans()
+    assert [s["name"] for s in written] == ["matmul"] * 3 + ["nothing"]
+    for s in written:
+        assert s["parent"] is None and s["end_ns"] >= s["start_ns"]
+    for s in written[:3]:
+        assert s["stream_ms"] == pytest.approx(
+            (s["end_ns"] - s["start_ns"]) * 1e-6)
+    assert written[3]["stream_ms"] is None
+    assert len({s["request"] for s in written}) == 4
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    with span("off", "cpu"):
+        pass
+    assert len(spans()) == 4
+    clear_spans()
+    assert spans() == []
 
 
 def test_ops_exports_are_the_jax_names_the_port_has():

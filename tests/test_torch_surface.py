@@ -51,6 +51,9 @@ RENAMED = {
 
 _LANES = ("a TPU lane layout (columns of 128 lanes); the port computes in "
           "the row layout")
+_SPANS = ("a fenced wall-clock timer of stages; the port's spans "
+          "(utils.profiling.span) time its stages on the host and on the "
+          "card's stream under a profiler")
 JAX_ONLY = {
     "lisec_tpu.bench_lib:chain_time":
         "a lax.scan loop that times a chain of calls on the device; the "
@@ -86,6 +89,10 @@ JAX_ONLY = {
         "loads the C++ library; the port's native helpers are numpy",
     "lisec_tpu.ops.pallas.gather_mxu:fits_vmem":
         "the TPU's VMEM capacity test; the CUDA gather takes any table",
+    "lisec_tpu.utils:Timer": _SPANS,
+    "lisec_tpu.utils:device_sync": _SPANS,
+    "lisec_tpu.utils.profiling:Timer": _SPANS,
+    "lisec_tpu.utils.profiling:device_sync": _SPANS,
 }
 
 
