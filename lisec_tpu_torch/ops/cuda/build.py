@@ -1,11 +1,15 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each ``lisec_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``lisec_tpu_torch/_build/lib<name>-<hash>.so``, then loaded with
-``ctypes``. The hash covers the source and the flags, so an edited
-source is rebuilt and a built one is reused. Nothing is compiled when a
-module is imported: a wrapper builds its library at its first launch.
+``ctypes``. A ``csrc/<name>.cc`` is host code, compiled the same way by
+``g++`` for any x86-64 or aarch64 host (no ``-march``), without
+``-ffast-math`` and without floating-point contraction, so that its f32
+arithmetic is IEEE's, operation for operation. The hash covers the
+source and the flags, so an edited source is rebuilt and a built one is
+reused. Nothing is compiled when a module is imported: a wrapper builds
+its library at its first call.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -44,19 +49,44 @@ def nvcc_path() -> str:
     return path
 
 
+def gxx_path() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError(
+            "g++ not found on PATH; the host code of lisec_tpu_torch is "
+            "built from source")
+    return path
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` (device code), else ``csrc/<name>.cc`` (host
+    code)."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cc"
+
+
+def _compiler(src: Path):
+    """(compiler, flags) for a source, chosen by its suffix."""
+    if src.suffix == ".cu":
+        return nvcc_path, NVCC_FLAGS
+    return gxx_path, HOST_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    src = source_path(name)
+    flags = _compiler(src)[1]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Dict[str, object]:
-    """Compile ``csrc/<name>.cu`` unless it is built already.
+    """Compile ``csrc/<name>.cu`` (or ``.cc``) unless it is built
+    already.
 
-    Returns ``{"seconds": s, "log": nvcc output}`` (0 and "" when the
-    library was already built). Raises if nvcc fails. Each call compiles
-    to a temporary file of its own and renames it into place, so ranks
-    that build at once cannot interleave their writes.
+    Returns ``{"seconds": s, "log": compiler output}`` (0 and "" when the
+    library was already built). Raises if the compiler fails. Each call
+    compiles to a temporary file of its own and renames it into place, so
+    ranks that build at once cannot interleave their writes.
     """
     out = library_path(name)
     if out.exists():
@@ -66,14 +96,15 @@ def build(name: str) -> Dict[str, object]:
                                suffix=".tmp", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               str(CSRC_DIR / f"{name}.cu")]
+        src = source_path(name)
+        compiler, flags = _compiler(src)
+        cmd = [compiler(), *flags, "-o", tmp, str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"{cmd[0]} failed for {src.name}:\n{log}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -134,6 +134,30 @@ def test_spans_nest_with_parent_and_request_ids(fresh, tmp_path):
     assert names == {"lisec.a": 2, "lisec.b": 2, "lisec.c": 2, "lisec.d": 2}
 
 
+def test_wire_pack_records_one_span_a_pack(fresh, tmp_path):
+    """The compiled pack still opens ``wire.pack`` around the whole call:
+    one root span, and one ``lisec.wire.pack`` range in the trace, a
+    pack."""
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-5, 5, (3, 64, 4)).astype(np.float32)
+    mask = np.arange(64)[None, :] < np.array([[64], [9], [0]])
+    with _recording() as prof:
+        for _ in range(3):
+            pack_points_q16(pts, mask)
+    rec = spans()
+    assert [s["name"] for s in rec] == ["wire.pack"] * 3
+    assert all(s["parent"] is None and s["stream_ms"] is None for s in rec)
+    assert len({s["request"] for s in rec}) == 3
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = Counter(e["name"] for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(profiling.PREFIX))
+    assert names == {"lisec.wire.pack": 3}
+
+
 def test_trace_writes_the_spans_it_recorded(fresh, tmp_path):
     with _recording():
         with span("before"):
