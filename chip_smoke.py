@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
     torchrun --nproc_per_node 4 chip_smoke.py --nccl <shared dir>
+    python3 chip_smoke.py --centerpoint
 
 The second form runs only phase 14's data-parallel checks, on NCCL with
-one rank a card (four cards of one host).
+one rank a card (four cards of one host); the third only the build and
+phase 5's CenterPoint serving.
 
 Phases, each of which fails the run (nonzero exit) when it goes wrong:
 
@@ -71,6 +73,13 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    call of a ``configs/second_footprint_conv.yaml`` train step at batch 4
    against its plain version, also with every level cut to a smaller
    budget (``FOOTPRINT_TRUNCATED``), and its train steps as phase 4's;
+   then CenterPoint (``configs/centerpoint_nuscenes.yaml`` at full
+   width, bf16, the benchmark cell's calibrated seed weights, ray-cast
+   10-sweep frames)
+   through ``infer_packed`` at batch 4 and 1 with the counts set to 0
+   just before and read just after (21 spreads and 2 paints, nothing
+   else), every spread and paint call of a batch-4 predict against its
+   plain version;
 6. time the PointPillars predict at batch 8 and 32, the SECOND predict
    (dilate and footprint) at batch 1 and 8 with its stages (and its two
    paint calls at batch 8), the three detector train steps and their parts at batch 4, and every kernel, its
@@ -248,6 +257,7 @@ TRAIN_CFG = os.path.join(ROOT, "configs",
 WEIGHTS = os.path.join(ROOT, "weights", "pointpillars_fixture_hard.npz")
 SECOND_CFG = os.path.join(ROOT, "configs", "second_kitti.yaml")
 SECOND_TRAIN_CFG = os.path.join(ROOT, "configs", "second_fixture_conv.yaml")
+CENTERPOINT_CFG = os.path.join(ROOT, "configs", "centerpoint_nuscenes.yaml")
 KERNEL_SOURCES = ("encoder_kernel", "segment_paint", "segment_unpaint",
                   "spread_accumulate", "fps", "gather_rows", "threefry")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
@@ -1851,6 +1861,145 @@ def phase_second_serving(pipe, cfg, config="second_kitti"):
          head_maps_bit_equal=all(torch.equal(maps_k[k], maps_p[k])
                                  for k in maps_k))
     return launches
+
+
+# A CenterPoint predict: the voxelizer's paint and the densify's, and
+# one spread a sparse conv (conv_input, 4 x 4 blocks' convs, 3 strided
+# convs, conv_out: 21; the submanifold ones hand their map, the strided
+# ones build theirs, two kernel launches each).
+CENTERPOINT_LAUNCHES_PER_PREDICT = {"segment_paint": 2, "segment_unpaint": 0,
+                                    "spread_accumulate": 21}
+
+
+def nusc_batch(cfg, b, seed0=0):
+    """``b`` ray-cast 10-sweep frames (``portbench/traffic/
+    raycast_nusc10.py``, seeds seed0...), padded to the budget: points
+    (b, N, 5) and mask."""
+    import numpy as np
+    from portbench.traffic.raycast_nusc10 import make_scene
+    n = cfg.budget.max_points
+    pts = np.zeros((b, n, 5), np.float32)
+    mask = np.zeros((b, n), bool)
+    for i in range(b):
+        p = make_scene(seed0 + i, tuple(cfg.voxel.point_cloud_range))[
+            "points"][:n]
+        pts[i, :len(p)] = p
+        mask[i, :len(p)] = True
+    return {"points": pts, "point_mask": mask}
+
+
+def load_centerpoint_weights(pipe):
+    """The benchmark cell's weights (``portbench/configs/
+    centerpoint_nuscenes.json``): the seed draw, its head gains and its
+    BatchNorms and heatmap bias calibrated in the plain reference. The
+    initial draw alone, its running statistics at (0, 1), grows through
+    the 16 residual convs until the sizes' ``exp`` overflows."""
+    import torch
+    from pathlib import Path
+    from lisec_tpu_torch.config import config_to_dict
+    from lisec_tpu_torch.weights import convert_flax_arrays, to_flax_arrays
+    from portbench.harness.spec import load_module
+    loop = load_module("loops", "serve_center")
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "centerpoint_nuscenes.json")) as f:
+        spec = json.load(f)["weights"]
+    cfg = config_to_dict(pipe.cfg)
+    layout = {k: tuple(v.shape)
+              for k, v in to_flax_arrays(pipe.model).items()}
+    w = loop.draw_weights(layout, spec, cfg, "cuda")
+    pts, counts = loop.make_pool(cfg, spec["calibrate_scenes"],
+                                 spec["calibrate_clouds"],
+                                 spec["weight_seed"], Path(ROOT))
+    loop.calibrate(w, spec, torch.as_tensor(pts, device="cuda"),
+                   torch.as_tensor(counts), cfg,
+                   load_module("reference", "centerpoint"))
+    pipe.model.load_state_dict(convert_flax_arrays(
+        {k: v.cpu().numpy() for k, v in w.items()}, "centerpoint"))
+    pipe.model.eval()
+
+
+def phase_centerpoint_serving():
+    """CenterPoint (``configs/centerpoint_nuscenes.yaml`` at full width,
+    bf16, the benchmark cell's calibrated seed weights, ray-cast 10-sweep
+    frames) through
+    ``infer_packed`` at batch 4 and 1 with the launch counts set to 0 just
+    before and read just after (``CENTERPOINT_LAUNCHES_PER_PREDICT``);
+    every ``spread_accumulate`` and ``segment_paint`` call of a batch-4
+    predict held against its plain version (the spread bit for bit, the
+    paint as ``check_paint`` holds it, its bits compared too); the
+    device-resident predict at batch 4 and 1 timed. Returns the launches
+    of a predict."""
+    import torch
+    from lisec_tpu_torch.api import build_model, load_config
+    from lisec_tpu_torch.data.wire import pack_points_q16
+    from lisec_tpu_torch.ops.cuda import segment_paint as sp
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    cfg = load_config(CENTERPOINT_CFG)
+    pipe = build_model(cfg)
+    load_centerpoint_weights(pipe)
+    post = len(pipe.tasks) * pipe.task_post
+    launches = {}
+    for b, seed0 in ((4, 0), (1, 10)):
+        batch = nusc_batch(cfg, b, seed0)
+        packed = pack_points_q16(batch["points"], batch["point_mask"])
+        pipe.infer_packed(packed)                 # warm
+        torch.cuda.synchronize()
+        zero_segment_launches()
+        out = pipe.infer_packed(packed)
+        torch.cuda.synchronize()
+        launches[b] = segment_launches()
+        if launches[b] != CENTERPOINT_LAUNCHES_PER_PREDICT:
+            raise AssertionError(f"centerpoint predict at batch {b} "
+                                 f"launches {launches[b]}, expected "
+                                 f"{CENTERPOINT_LAUNCHES_PER_PREDICT}")
+        if out["boxes"].shape != (b, post, 9):
+            raise AssertionError(f"centerpoint boxes "
+                                 f"{tuple(out['boxes'].shape)}")
+        for k in ("boxes", "scores"):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"centerpoint predict: non-finite {k}")
+        dev = pipe.device_batch(batch)
+        ms = cuda_ms(lambda: pipe.predict(dev), 5)
+        emit("centerpoint_main_path", config="centerpoint_nuscenes", batch=b,
+             launches=launches[b], predict_ms=ms,
+             points=batch["point_mask"].sum(1).tolist(),
+             kept_per_cloud=out["valid"].sum(1).tolist())
+
+    batch = pipe.device_batch(nusc_batch(cfg, 4))
+    calls = {}
+    with recorded_segment_calls(calls), torch.no_grad():
+        pipe.predict(batch)
+    spreads, paints = calls["spread_accumulate"], calls["segment_paint"]
+    if (len(spreads), len(paints)) != (21, 2):
+        raise AssertionError(f"{len(spreads)} spreads, {len(paints)} paints "
+                             "recorded, expected 21 and 2")
+    for i, (vals, targets, num_out, sources) in enumerate(spreads):
+        got = sa.spread_accumulate(vals, targets, num_out=num_out,
+                                   sources=sources)
+        ref = sa.spread_accumulate_reference(vals, targets, num_out=num_out)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"centerpoint spread {i}: {int((got != ref).sum())} "
+                "elements differ from the plain version")
+        emit("kernel_check", kernel="spread_accumulate",
+             case=f"centerpoint_conv{i}", vals=list(vals.shape),
+             dtype=str(vals.dtype), num_out=num_out,
+             inverse_map="given" if sources is not None else "built",
+             bit_equal=True, max_abs_err=0.0)
+    for i, (vals, ids, num_cells, num_max, _) in enumerate(paints):
+        # Whole tables: a split only hands the same table over in parts.
+        got = sp.segment_paint(vals, ids, num_cells=num_cells,
+                               num_max=num_max)
+        ref = sp.segment_paint_reference(vals, ids, num_cells=num_cells,
+                                         num_max=num_max)
+        err, differ = check_paint(got, ref, num_max,
+                                  f"centerpoint paint {i}")
+        emit("kernel_check", kernel="segment_paint",
+             case=("centerpoint_voxelize", "centerpoint_densify")[i],
+             vals=list(vals.shape), num_cells=num_cells,
+             bit_equal=differ == 0, elements_differing=differ,
+             max_abs_err=err)
+    return launches[4]
 
 
 # The submanifold rulebook (PR 14): one paint (the 13 inverses) a build,
@@ -5959,6 +6108,7 @@ def main() -> int:
     launches, err = phase_main_path(pipe, cfg)
     phase_tiny_vs_cpu("pointpillars_tiny", TINY_CFG, keep_sets=True)
     second_launches = phase_second_serving(second_pipe, second_cfg)
+    phase_centerpoint_serving()
     subm_row = phase_subm_rulebook(second_pipe, second_cfg)
     phase_tiny_vs_cpu("second_tiny", SECOND_TINY_CFG, keep_sets=False)
     train_pipe, train_cfg, train_batch, train_launches = phase_train_path(
@@ -6242,7 +6392,28 @@ def main() -> int:
 
 CARD = ""
 
+def centerpoint_main() -> int:
+    """``--centerpoint``: the build and phase 5's CenterPoint serving
+    alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    global CARD
+    CARD = card()
+    phase_build()
+    phase_centerpoint_serving()
+    print(CARD)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--nccl"]:
         sys.exit(nccl_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--centerpoint"]:
+        sys.exit(centerpoint_main())
     sys.exit(main())

@@ -92,8 +92,9 @@ def batch_norm(xf: torch.Tensor, layer: nn.Module, channel_dim: int, *,
 
 
 # The order in which a flax module calls ``self.param`` for its leaves:
-# flax keys the initializer of a module's n-th param with counter n.
-_PARAM_ORDER = ("kernel", "scale", "bias")
+# flax keys the initializer of a module's n-th param with counter n. A
+# port-only model's conv bias (``conv_bias``, CenterPoint's) comes last.
+_PARAM_ORDER = ("kernel", "scale", "bias", "conv_bias")
 
 
 def flax_initializer(model, key: str) -> prng.Initializer:

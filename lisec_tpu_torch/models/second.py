@@ -37,7 +37,7 @@ from lisec_tpu_torch.utils import prng
 from lisec_tpu_torch.utils.profiling import span
 
 
-NUM_OFFSETS = 27            # every sparse conv here has 3 x 3 x 3 taps
+NUM_OFFSETS = 27            # every sparse conv of SECOND has 3 x 3 x 3 taps
 
 
 def mean_vfe(voxels: torch.Tensor, num_points: torch.Tensor) -> torch.Tensor:
@@ -52,14 +52,25 @@ class SparseConv3D(nn.Module):
     """One sparse conv (weights (K, Cin, Cout)) + BatchNorm + ReLU over a
     batched padded voxel list. BatchNorm runs over all B * V_out rows,
     the zero rows beyond the valid ones included, as in the JAX
-    package."""
+    package.
+
+    ``num_offsets`` is the kernel's tap count (27 for 3 x 3 x 3, 3 for
+    CenterPoint's 3 x 1 x 1 ``conv_out``); ``conv_bias`` gives the conv a
+    bias of its own before the BatchNorm (``conv_bias``, as spconv's
+    convs with ``bias=True``), added to the f32 sum; ``relu=False``
+    stops after the BatchNorm, for a residual block's second conv. The
+    defaults are SECOND's."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, *,
+                 num_offsets: int = NUM_OFFSETS, conv_bias: bool = False,
+                 relu: bool = True):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.relu = dtype, relu
         self.weight = nn.Parameter(
-            torch.zeros(NUM_OFFSETS, in_channels, out_channels))
+            torch.zeros(num_offsets, in_channels, out_channels))
+        self.conv_bias = (nn.Parameter(torch.zeros(out_channels))
+                          if conv_bias else None)
         self.scale = nn.Parameter(torch.ones(out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.register_buffer("mean", torch.zeros(out_channels))
@@ -71,13 +82,17 @@ class SparseConv3D(nn.Module):
         """feats (B, V_in, Cin), out_of (B, K, V_in) scatter rulebook,
         valid (B, V_out), sources the rulebook's inverse where the caller
         holds it (B, K, V_out) -> (B, V_out, Cout) in the compute
-        dtype."""
+        dtype, zero on the rows that are not valid."""
         y = sparse_conv3d_spread(
             feats.to(self.dtype), out_of, self.weight.to(self.dtype),
             v_out=valid.shape[1], sources=sources)
+        if self.conv_bias is not None:
+            y = y + self.conv_bias
         # The f32 sum returns to the compute dtype before BatchNorm.
         y = batch_norm(y.to(self.dtype).float(), self, -1).to(self.dtype)
-        return torch.where(valid[..., None], torch.relu(y), 0.0)
+        if self.relu:
+            y = torch.relu(y)
+        return torch.where(valid[..., None], y, 0.0)
 
 
 class DenseConv3D(nn.Module):

@@ -26,7 +26,7 @@ from lisec_tpu_torch.utils.profiling import span
 
 
 class NMSResult(NamedTuple):
-    boxes: torch.Tensor       # (B, nms_post, 7)
+    boxes: torch.Tensor       # (B, nms_post, D), D >= 7 as given
     scores: torch.Tensor      # (B, nms_post)
     labels: torch.Tensor      # (B, nms_post) int32
     valid: torch.Tensor       # (B, nms_post) bool
@@ -60,7 +60,8 @@ def _run_streams(alive, top_scores, top_boxes, top_labels, half_diag, *,
     """Block-greedy NMS of S independent streams in lockstep.
 
     alive/top_scores/top_labels/half_diag (S, P), top_boxes (S, P, 7),
-    candidates sorted by score descending. Returns (out_idx (S, post)
+    candidates sorted by score descending; ``top_labels`` are the keys
+    within which boxes suppress each other. Returns (out_idx (S, post)
     int64 candidate slots, out_valid (S, post) bool)."""
     s, pre = alive.shape
     dev = alive.device
@@ -174,19 +175,27 @@ def rotated_nms(
     k_near: int = 0,
     select: str = "topk",
     class_parallel: int = 0,
+    groups: torch.Tensor = None,
+    stream_post: int = 0,
 ) -> NMSResult:
     """Greedy class-aware rotated NMS of each cloud's detections.
 
-    boxes (B, A, 7), scores (B, A), labels (B, A) int. Boxes of different
-    classes never suppress each other. Emits up to ``nms_post`` boxes per
-    cloud in descending score order. ``block`` does not change the
-    result; ``k_near`` > 0 bounds the exact-IoU work per emitted box to
-    its k_near nearest same-class candidates (0 = full rows);
-    ``select`` is "topk" (masked top-k) or "scan" (first alive slots);
-    ``class_parallel`` > 1 (the class count) runs one stream per class
-    and merges them by score. Under a profiler, the span ``nms``, and in
-    it one ``nms.round`` a round and ``nms.wait`` where the host waits
-    for the card to learn whether another round runs.
+    boxes (B, A, D) with (x, y, z, l, w, h, yaw) first and any further
+    columns (a velocity) carried along, scores (B, A), labels (B, A)
+    int. Boxes of different classes never suppress each other; with
+    ``groups`` (B, A) int, boxes of different groups never do, and those
+    of one group do whatever their labels (CenterPoint's per-task NMS).
+    Emits up to ``nms_post`` boxes per cloud in descending score order.
+    ``block`` does not change the result; ``k_near`` > 0 bounds the
+    exact-IoU work per emitted box to its k_near nearest candidates of
+    its class (group) (0 = full rows); ``select`` is "topk" (masked
+    top-k) or "scan" (first alive slots); ``class_parallel`` > 1 (the
+    class count, or the group count with ``groups``) runs one stream per
+    class (group) and merges them by score, each stream emitting up to
+    ``stream_post`` boxes where that is given (else ``nms_post``). Under
+    a profiler, the span ``nms``, and in it one ``nms.round`` a round and
+    ``nms.wait`` where the host waits for the card to learn whether
+    another round runs.
     """
     if select not in ("topk", "scan"):
         raise ValueError(f"select must be 'topk' or 'scan', got {select!r}")
@@ -200,6 +209,10 @@ def rotated_nms(
         top_scores, order = top_k(scores, nms_pre)
         top_boxes = _rows(boxes, order)
         top_labels = torch.gather(labels, 1, order)
+        top_keys = (top_labels if groups is None
+                    else torch.gather(groups, 1, order))
+        # The IoU and the prefilter read the first seven columns.
+        iou_boxes = top_boxes[..., :7]
         alive = top_scores > score_threshold
         half_diag = 0.5 * torch.hypot(top_boxes[..., 3], top_boxes[..., 4])
         kw = dict(iou_threshold=iou_threshold, score_threshold=score_threshold,
@@ -208,14 +221,15 @@ def rotated_nms(
 
         if class_parallel > 1:
             cls_ids = torch.arange(class_parallel, device=scores.device)
-            alive_c = alive[:, None, :] & (top_labels[:, None, :]
+            alive_c = alive[:, None, :] & (top_keys[:, None, :]
                                            == cls_ids[None, :, None])
 
             def rep(x):
                 return x.repeat_interleave(class_parallel, dim=0)
+            kw["nms_post"] = stream_post or nms_post
             oi, ov = _run_streams(
                 alive_c.reshape(b * class_parallel, -1), rep(top_scores),
-                rep(top_boxes), rep(top_labels), rep(half_diag), **kw)
+                rep(iou_boxes), rep(top_keys), rep(half_diag), **kw)
             oi = oi.reshape(b, -1)
             ov = ov.reshape(b, -1)
             # Each stream already descends, so the top nms_post by score is
@@ -227,7 +241,7 @@ def rotated_nms(
             out_valid = torch.gather(ov, 1, mi)
         else:
             out_idx, out_valid = _run_streams(
-                alive, top_scores, top_boxes, top_labels, half_diag, **kw)
+                alive, top_scores, iou_boxes, top_keys, half_diag, **kw)
 
         vb = torch.where(out_valid[..., None], _rows(top_boxes, out_idx), 0.0)
         vs = torch.where(out_valid, torch.gather(top_scores, 1, out_idx), 0.0)

@@ -1,6 +1,7 @@
-"""Anchor-based 3D detection: PointPillars and SECOND (port of
+"""3D detection: the anchor-based PointPillars and SECOND (port of
 ``lisec_tpu/pipelines/detection.py::PointPillarsPipeline`` and
-``SECONDPipeline``).
+``SECONDPipeline``), and the port's CenterPoint (``CenterPointPipeline``,
+serving only; the JAX package has no CenterPoint).
 
 Inference: points + mask -> encoder (the fused pillar encoder; with
 ``model.params.fused: false`` voxelize + the pillar feature net + the
@@ -25,6 +26,7 @@ from lisec_tpu_torch.data.augment import GTSampler, augment_detection
 from lisec_tpu_torch.data.kitti import KittiDetection
 from lisec_tpu_torch.eval.detection import match_frame
 from lisec_tpu_torch.eval.kitti_ap import collect_detections, kitti_ap
+from lisec_tpu_torch.models.centerpoint import CenterPointNet
 from lisec_tpu_torch.models.pointpillars import (
     PointPillars, PointPillarsFused)
 from lisec_tpu_torch.models.second import SECONDNet
@@ -43,6 +45,7 @@ from lisec_tpu_torch.utils.profiling import span
 
 register_model("pointpillars")(PointPillarsFused)
 register_model("second")(SECONDNet)
+register_model("centerpoint")(CenterPointNet)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -341,3 +344,139 @@ class SECONDPipeline(PointPillarsPipeline):
             bev_up_filters=tuple(p.get("bev_up_filters", [256, 256])),
             dtype=_DTYPES[p.get("dtype", "float32")],
         )
+
+
+@register_pipeline("centerpoint")
+class CenterPointPipeline(Pipeline):
+    """CenterPoint (``models/centerpoint.py``) on multi-sweep clouds of
+    five channels (x, y, z, intensity, time lag): voxelize + mean-VFE ->
+    the residual sparse encoder -> BEV backbone -> centre head -> per
+    task: heatmap top-k, centre decode, the score threshold and the
+    centre range, rotated NMS within the task -> boxes
+    (x, y, z, l, w, h, yaw, vx, vy), scores, labels (indices into
+    ``data.class_names``) and ``valid``, every task's kept boxes in one
+    list by descending score.
+
+    ``model.params``: ``tasks`` (the class names of each task),
+    ``max_obj_per_sample`` (the heatmap's top-k a task), ``nms_pre`` and
+    ``nms_post`` (a task's candidates and keeps), ``nms_iou``,
+    ``score_threshold``, ``post_center_range``, and the widths. Serving
+    only: the repository holds no nuScenes split nor trained snapshot,
+    so there is no loss and no evaluation."""
+
+    OUTPUT_STRIDE = 8
+
+    def __init__(self, cfg: Config, device="cuda", seed: int = 0):
+        super().__init__(cfg, device)
+        p = cfg.model.params
+        self.class_names = tuple(cfg.data.class_names)
+        self.tasks = [tuple(t) for t in p["tasks"]]
+        self.grid = cfg.voxel.grid_size                   # (nx, ny, nz)
+        width = max(len(t) for t in self.tasks)
+        self.class_ids = torch.tensor(
+            [[self.class_names.index(c) for c in t] + [-1] * (width - len(t))
+             for t in self.tasks], dtype=torch.int32, device=self.device)
+        model = self.build_model(cfg)
+        model.reset_parameters(seed)
+        self.model = model.to(self.device).eval()
+        self.nms_iou = float(p.get("nms_iou", 0.2))
+        self.score_thr = float(p.get("score_threshold", 0.1))
+        self.max_obj = int(p.get("max_obj_per_sample", 500))
+        self.task_pre = int(p.get("nms_pre", 1000))
+        self.task_post = int(p.get("nms_post", 83))
+        r = cfg.voxel.point_cloud_range
+        self.post_range = tuple(float(v) for v in p.get(
+            "post_center_range", [r[0], r[1], -10.0, r[3], r[4], 10.0]))
+
+    def build_model(self, cfg: Config) -> CenterPointNet:
+        p = cfg.model.params
+        return CenterPointNet(
+            grid_size=self.grid,
+            tasks=[len(t) for t in self.tasks],
+            in_channels=int(p.get("in_channels", 5)),
+            encoder_channels=tuple(p.get("encoder_channels",
+                                         [16, 32, 64, 128])),
+            encoder_out_channels=int(p.get("encoder_out_channels", 128)),
+            level_budgets=tuple(p["level_budgets"]),
+            bev_layers=tuple(p.get("bev_layers", [5, 5])),
+            bev_filters=tuple(p.get("bev_filters", [128, 256])),
+            bev_strides=tuple(p.get("bev_strides", [1, 2])),
+            bev_up_strides=tuple(p.get("bev_up_strides", [1, 2])),
+            bev_up_filters=tuple(p.get("bev_up_filters", [256, 256])),
+            head_channels=int(p.get("head_channels", 64)),
+            dtype=_DTYPES[p.get("dtype", "float32")])
+
+    def _model_args(self, batch):
+        """The voxelizer's means, coords and counts; under a profiler
+        the span ``voxelize``."""
+        cfg = self.cfg
+        with span("voxelize", self.device):
+            vox = voxelize_mean_batch(
+                batch["points"], batch["point_mask"],
+                pc_range=cfg.voxel.point_cloud_range,
+                voxel_size=cfg.voxel.voxel_size, grid_size=self.grid,
+                max_voxels=cfg.budget.max_voxels,
+                max_points_per_voxel=cfg.budget.max_points_per_voxel)
+        return vox.feats, vox.coords, vox.num_points, vox.num_voxels
+
+    def decode(self, preds: Dict[str, torch.Tensor]):
+        """Each task's top-k heatmap cells decoded: (boxes (B, T * K, 9),
+        scores (B, T * K), -inf outside ``post_center_range``, labels,
+        tasks), K the smaller of ``max_obj_per_sample`` and ``nms_pre``."""
+        hm = torch.sigmoid(preds["hm"])                # (B, T, C, H, W)
+        b, t, c, h, w = hm.shape
+        k = min(self.max_obj, self.task_pre, c * h * w)
+        scores, idx = top_k(hm.reshape(b, t, c * h * w), k)   # (B, T, K)
+        cls = torch.div(idx, h * w, rounding_mode="floor")
+        cell = idx - cls * (h * w)
+
+        def at(name):
+            m = preds[name]
+            m = m.reshape(b, t, m.shape[2], h * w)
+            g = torch.gather(m, 3, cell[:, :, None, :].expand(
+                -1, -1, m.shape[2], -1))
+            return g.permute(0, 1, 3, 2)               # (B, T, K, c)
+        vs = self.cfg.voxel.voxel_size
+        r = self.cfg.voxel.point_cloud_range
+        ctr = at("center")
+        row = torch.div(cell, w, rounding_mode="floor")
+        x = ((cell - row * w).float() + ctr[..., 0]) \
+            * (self.OUTPUT_STRIDE * vs[0]) + r[0]
+        y = (row.float() + ctr[..., 1]) * (self.OUTPUT_STRIDE * vs[1]) + r[1]
+        z = at("center_z")[..., 0]
+        rot = at("rot")
+        yaw = torch.atan2(rot[..., 1], rot[..., 0])
+        boxes = torch.cat([torch.stack([x, y, z], -1), torch.exp(at("dim")),
+                           yaw[..., None], at("vel")], -1)
+        lo, hi = self.post_range[:3], self.post_range[3:]
+        inside = torch.ones_like(scores, dtype=torch.bool)
+        for v, a, z_ in zip((x, y, z), lo, hi):
+            inside &= (v >= a) & (v <= z_)
+        scores = torch.where(inside, scores, float("-inf"))
+        task = torch.arange(t, device=hm.device)[None, :, None].expand(
+            b, -1, k)
+        labels = self.class_ids[task, cls]
+        return (boxes.reshape(b, t * k, 9), scores.reshape(b, t * k),
+                labels.reshape(b, t * k), task.reshape(b, t * k))
+
+    def predict(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Boxes (B, T * nms_post, 9), scores, labels and ``valid``, the
+        valid rows first. Under a profiler, the spans ``predict.forward``
+        (the voxelizer, ``encoder`` and ``center.head`` in it),
+        ``predict.decode`` and ``nms``."""
+        with span("predict.forward", self.device):
+            preds = self.model(*self._model_args(batch))
+        with span("predict.decode", self.device):
+            boxes, scores, labels, task = self.decode(preds)
+        budget = self.cfg.budget
+        t = len(self.tasks)
+        nms = rotated_nms(
+            boxes, scores, labels, groups=task,
+            iou_threshold=self.nms_iou, score_threshold=self.score_thr,
+            nms_pre=scores.shape[1], nms_post=t * self.task_post,
+            stream_post=self.task_post, k_near=budget.nms_near,
+            block=budget.nms_block, select=budget.nms_select,
+            class_parallel=t)
+        return {"boxes": nms.boxes, "scores": nms.scores,
+                "labels": nms.labels, "valid": nms.valid}

@@ -46,6 +46,13 @@ The voxel-buffer PointPillars (``FLAX_KEYS`` ``"pointpillars"``) maps
 ``PillarFeatureNet_0/BatchNorm_0`` -> ``pfn.bn``, its backbone and head
 as the fused model's.
 
+CenterPoint (``FLAX_KEYS`` ``"centerpoint"``), which the JAX package
+does not have, takes its flax keys from its module paths: the
+``state_dict`` name with each ``.`` a ``/`` under ``params`` or
+``batch_stats``, ``weight`` as ``kernel`` (``encoder.sparse.3.conv_bias``
+-> ``params/encoder/sparse/3/conv_bias``); its ``backbone`` maps as the
+detectors' ``BEVBackbone_0``.
+
 The classifiers name their map: their classes' ``FLAX_KEYS``
 (``"pointnet_cls"``, ``"pointnet2_cls"``) go to ``convert_flax_arrays``
 as ``keys``; RangeSegNet's is ``"rangeseg"``. Without ``keys`` the
@@ -283,19 +290,40 @@ def _pointpillars_flax_key(name: str) -> str:
             f"{'kernel' if leaf == 'weight' else leaf}")
 
 
+_BEV_KEY = re.compile(r"(params|batch_stats)/BEVBackbone_0/")
+
+
+def _centerpoint_name(key: str) -> str:
+    """Flat flax key of CenterPoint -> ``state_dict`` name."""
+    if _BEV_KEY.match(key):
+        return _modules_name(key)
+    _, *path, leaf = key.split("/")
+    return ".".join(path + ["weight" if leaf == "kernel" else leaf])
+
+
+def _centerpoint_flax_key(name: str) -> str:
+    """CenterPoint ``state_dict`` name -> flat flax key."""
+    if name.startswith("backbone."):
+        return _flax_key(name)
+    *path, leaf = name.split(".")
+    col = "batch_stats" if leaf in _BUFFERS else "params"
+    return f"{col}/{'/'.join(path)}/{'kernel' if leaf == 'weight' else leaf}"
+
+
 def convert_flax_arrays(flat: Dict[str, np.ndarray],
                         keys: Optional[str] = None
                         ) -> Dict[str, torch.Tensor]:
     """Flat flax arrays -> the ``state_dict`` of the port's
     PointPillarsFused, SECONDNet, PointNet2PartSeg or RangeSegNet, or of
     the model whose ``FLAX_KEYS`` is ``keys`` (PointNetCls,
-    PointNet2Cls, the voxel-buffer PointPillars).
+    PointNet2Cls, the voxel-buffer PointPillars, CenterPoint).
 
     Raises KeyError on a key it cannot place."""
     levels = sum(1 for key in flat if _RANGESEG_UP.match(key))
     name = {"pointnet_cls": _pointnet_cls_name,
             "pointnet2_cls": _pointnet2_cls_name,
-            "pointpillars": _pointpillars_name}.get(keys)
+            "pointpillars": _pointpillars_name,
+            "centerpoint": _centerpoint_name}.get(keys)
     if name is None:
         name = ((lambda key: _rangeseg_name(key, levels)) if levels
                 else _modules_name)
@@ -385,7 +413,8 @@ def to_flax_arrays(model: nn.Module,
         "rangeseg": lambda name: _rangeseg_flax_key(name, len(model.up)),
         "pointnet_cls": _pointnet_cls_flax_key,
         "pointnet2_cls": _pointnet2_flax_key,
-        "pointpillars": _pointpillars_flax_key}.get(keys, _flax_key)
+        "pointpillars": _pointpillars_flax_key,
+        "centerpoint": _centerpoint_flax_key}.get(keys, _flax_key)
     out = {}
     for name, t in (model.state_dict() if tensors is None
                     else tensors).items():
