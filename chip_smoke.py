@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     torchrun --nproc_per_node 4 chip_smoke.py --nccl <shared dir>
     python3 chip_smoke.py --centerpoint
+    python3 chip_smoke.py --nms
 
 The second form runs only phase 14's data-parallel checks, on NCCL with
 one rank a card (four cards of one host); the third only the build and
-phase 5's CenterPoint serving.
+phase 5's CenterPoint serving; the fourth only the build and the NMS
+rounds' kernel (``phase_nms_cells`` and ``phase_nms_grid``).
 
 Phases, each of which fails the run (nonzero exit) when it goes wrong:
 
@@ -240,6 +242,7 @@ exits nonzero before printing any result.
 
 import json
 import contextlib
+import ctypes
 import io
 import os
 import re
@@ -259,7 +262,8 @@ SECOND_CFG = os.path.join(ROOT, "configs", "second_kitti.yaml")
 SECOND_TRAIN_CFG = os.path.join(ROOT, "configs", "second_fixture_conv.yaml")
 CENTERPOINT_CFG = os.path.join(ROOT, "configs", "centerpoint_nuscenes.yaml")
 KERNEL_SOURCES = ("encoder_kernel", "segment_paint", "segment_unpaint",
-                  "spread_accumulate", "fps", "gather_rows", "threefry")
+                  "spread_accumulate", "fps", "gather_rows", "threefry",
+                  "rotated_nms")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 
@@ -6411,9 +6415,277 @@ def centerpoint_main() -> int:
     return 0
 
 
+# -- the NMS rounds' kernel ---------------------------------------------------
+
+NMS_CELLS = ("pp_serve_b32", "second_serve_b8", "centerpoint_serve_b4")
+
+
+def nms_gap(args, kw, a, b):
+    """Where two outputs of the rounds differ: the smallest |IoU - iou
+    threshold| of rotated_iou_bev over the pairs (box emitted by either,
+    candidate of its key) of the streams that differ, both orders; None
+    where they are equal."""
+    import torch
+    from lisec_tpu_torch.ops.rotated_iou import rotated_iou_bev
+    alive, scores, boxes, keys, hd = args
+    bad = ~((a[0] == b[0]) & (a[1] == b[1])).all(dim=1)
+    if not bad.any():
+        return None
+    gaps = []
+    for s in torch.nonzero(bad).flatten().tolist():
+        em = torch.unique(torch.cat([a[0][s][a[1][s]], b[0][s][b[1][s]]]))
+        if em.numel() == 0:
+            continue
+        eb, cb = boxes[s, em], boxes[s]
+        same = keys[s, em][:, None] == keys[s][None, :]
+        for iou in (rotated_iou_bev(eb[:, None], cb[None]),
+                    rotated_iou_bev(cb[None], eb[:, None])):
+            gaps.append(float((iou - kw["iou_threshold"]).abs()[same].min()))
+    return min(gaps) if gaps else float("inf")
+
+
+def check_nms_call(args, kw, got, what):
+    """The kernel's outputs of one call of the rounds against the plain
+    version's on the card: equal, or every difference within the IoU's
+    sum-order tolerance of the threshold. Returns the fields of its
+    ``kernel_check`` line."""
+    from lisec_tpu_torch.ops import nms as nms_mod
+    from lisec_tpu_torch.ops.cuda import rotated_nms as nk
+    want = nms_mod._run_streams(*args, **kw)
+    gap = nms_gap(args, kw, got, want)
+    if gap is not None and gap > nk.IOU_SUM_ORDER_TOL:
+        raise AssertionError(f"{what}: the kernel's keep sets differ from "
+                             f"the plain version's, nearest IoU {gap} from "
+                             f"the threshold")
+    return {"equal": gap is None, "closest_gap": gap,
+            "emitted": int(want[1].sum()), "emitted_kernel": int(got[1].sum())}
+
+
+def nms_call_fields(args, kw):
+    s, p = args[0].shape
+    return {"streams": s, "pre": p, "block": kw["block"],
+            "k_near": 0 if kw["full"] else kw["k_near"],
+            "post": kw["nms_post"], "iou": kw["iou_threshold"],
+            "key": str(args[3].dtype).replace("torch.", "")}
+
+
+class NMSRecorder:
+    """While entered, records every call of the rounds
+    (``nms_kernel.run_streams``: inputs cloned, keywords, outputs) and of
+    the pipelines' ``rotated_nms`` (inputs and keywords)."""
+
+    def __enter__(self):
+        from lisec_tpu_torch.ops import nms as nms_mod
+        from lisec_tpu_torch.pipelines import detection
+        self.rounds, self.calls = [], []
+        self._rs = nms_mod.nms_kernel.run_streams
+        self._nms = detection.rotated_nms
+
+        def rounds(*a, **kw):
+            out = self._rs(*a, **kw)
+            self.rounds.append(([x.clone() for x in a], dict(kw), out))
+            return out
+
+        def call(*a, **kw):
+            self.calls.append((a, dict(kw)))
+            return self._nms(*a, **kw)
+        nms_mod.nms_kernel.run_streams = rounds
+        detection.rotated_nms = call
+        return self
+
+    def __exit__(self, *exc):
+        from lisec_tpu_torch.ops import nms as nms_mod
+        from lisec_tpu_torch.pipelines import detection
+        nms_mod.nms_kernel.run_streams = self._rs
+        detection.rotated_nms = self._nms
+        return False
+
+
+def plain_rounds():
+    """A context in which ``rotated_nms`` runs the rounds' plain version
+    on the card."""
+    import contextlib
+    from lisec_tpu_torch.ops import nms as nms_mod
+
+    @contextlib.contextmanager
+    def swapped():
+        real = nms_mod.nms_kernel.run_streams
+        nms_mod.nms_kernel.run_streams = nms_mod._run_streams
+        try:
+            yield
+        finally:
+            nms_mod.nms_kernel.run_streams = real
+    return swapped()
+
+
+def phase_nms_cells(seed=2**31 + 22):
+    """Each serving cell of the benchmark set up as its run sets it up
+    (configuration, weights, traffic from ``seed``); each of its distinct
+    batches through ``infer_packed``, every call of the rounds held
+    against the plain version on the card (``kernel_check`` lines), and
+    the whole predict against the predict with the plain rounds (boxes,
+    scores, labels and ``valid`` equal); one ``rotated_nms`` call a
+    predict, one launch a call, and no host synchronisation inside it
+    (``torch.cuda.set_sync_debug_mode("error")``); then at each cell's
+    shape the kernel alone, the plain loop, and the whole ``rotated_nms``
+    with either (``nms_kernel`` lines)."""
+    import torch
+    from portbench.harness.spec import load_cell
+    from lisec_tpu_torch.data.wire import pack_points_q16
+    from lisec_tpu_torch.ops import nms as nms_mod
+    from lisec_tpu_torch.ops.cuda import build
+    from lisec_tpu_torch.ops.cuda import rotated_nms as nk
+    smem = build.bind("rotated_nms", "lisec_rotated_nms_smem", [])
+    smem.argtypes = [ctypes.c_longlong] * 5
+    smem.restype = ctypes.c_longlong
+    for name in NMS_CELLS:
+        cell = load_cell(name)
+        loop = cell.loop(cell, seed, "cuda")
+        loop.setup()
+        pipe = loop.pipeline
+        for bid, (_, pts, mask) in enumerate(loop.batches):
+            packed = pack_points_q16(pts, mask)
+            n0 = nk.LAUNCHES
+            with NMSRecorder() as rec:
+                out = pipe.infer_packed(packed)
+            torch.cuda.synchronize()
+            launches = nk.LAUNCHES - n0
+            if len(rec.calls) != 1 or len(rec.rounds) != 1 or launches != 1:
+                raise AssertionError(
+                    f"{name} batch {bid}: {len(rec.calls)} rotated_nms "
+                    f"calls, {len(rec.rounds)} rounds calls, {launches} "
+                    f"launches; expected one each")
+            args, kw, got = rec.rounds[0]
+            row = check_nms_call(args, kw, got, f"{name} batch {bid}")
+            with plain_rounds():
+                plain = pipe.infer_packed(packed)
+            same = all(torch.equal(out[k], plain[k])
+                       for k in ("boxes", "scores", "labels", "valid"))
+            if row["equal"] and not same:
+                raise AssertionError(f"{name} batch {bid}: the rounds agree "
+                                     f"but the predicts do not")
+            a, k = rec.calls[0]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                nms_mod.rotated_nms(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            emit("kernel_check", kernel="rotated_nms", case=name, batch=bid,
+                 predict_equal=same, launches_per_predict=launches,
+                 **nms_call_fields(args, kw), **row)
+        # Timings at the cell's shape: its first batch.
+        with NMSRecorder() as rec:
+            packed = pack_points_q16(*loop.batches[0][1:])
+            pipe.infer_packed(packed)
+        args, kw, _ = rec.rounds[0]
+        a, k = rec.calls[0]
+        s, p = args[0].shape
+        key_bytes = args[3].element_size()
+        nbytes = nk.bound_bytes(s, p, kw["nms_post"], key_bytes)
+        # CUDA events around the host-paced plain loop time its wall
+        # clock too: the stream idles while the host issues a round.
+        ms = cuda_ms(lambda: nk.run_streams(*args, **kw), 50)
+        _, parts = device_parts(lambda: nk.run_streams(*args, **kw))
+        parts = {n: v for n, v in parts.items() if not n.startswith("lisec.")}
+        dev_ms = sum(v["ms"] * v["per_call"] for v in parts.values())
+        plain_ms = cuda_ms(lambda: nms_mod._run_streams(*args, **kw), 5)
+        nms_ms = cuda_ms(lambda: nms_mod.rotated_nms(*a, **k), 20)
+        with plain_rounds():
+            nms_plain_ms = cuda_ms(lambda: nms_mod.rotated_nms(*a, **k), 5)
+        emit("nms_kernel", cell=name, **nms_call_fields(args, kw), ms=ms,
+             device_ms=dev_ms, parts=parts, plain_ms=plain_ms,
+             rotated_nms_ms=nms_ms, rotated_nms_plain_ms=nms_plain_ms,
+             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+             smem_bytes=smem(p, kw["block"], 0 if kw["full"] else
+                             kw["k_near"], int(kw["full"]), key_bytes))
+        loop.release()
+        del loop, pipe
+        torch.cuda.empty_cache()
+
+
+def nms_grid_inputs(gen, pre, variant):
+    """Two clouds of pre + 64 clustered boxes (exact duplicates among
+    them) with scores on a grid of 1/50, for ``rotated_nms``: 3 classes;
+    with ``groups`` 2 groups over 6 labels."""
+    import torch
+    b, a = 2, pre + 64
+    centres = torch.rand(b, 8, 2, generator=gen) * 60
+    pick = torch.randint(0, 8, (b, a), generator=gen)
+    xy = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2)) \
+        + torch.randn(b, a, 2, generator=gen) * 1.5
+    size = 1.0 + torch.rand(b, a, 3, generator=gen) * 3
+    yaw = (torch.rand(b, a, 1, generator=gen) - 0.5) * 6.3
+    boxes = torch.cat([xy, torch.zeros(b, a, 1), size, yaw], dim=-1)
+    boxes[:, 1::5] = boxes[:, 0::5][:, :boxes[:, 1::5].shape[1]]
+    scores = torch.round(torch.rand(b, a, generator=gen) * 50) / 50
+    labels = torch.randint(0, 6 if variant == "groups" else 3, (b, a),
+                           generator=gen).int()
+    kw = {}
+    if variant == "class_parallel":
+        kw["class_parallel"] = 3
+    elif variant == "groups":
+        kw.update(groups=(labels % 2).long().cuda(), class_parallel=2)
+    return boxes.cuda(), scores.cuda(), labels.cuda(), kw
+
+
+def phase_nms_grid():
+    """The kernel against the plain version on clustered random boxes:
+    pre 64, 1,024, 3,000 and 4,096; k_near 0 (full rows), 8 and 64;
+    block 4 and 16; one stream a cloud, one a class, one a group; IoU
+    thresholds 0.2 and 0.5 (``kernel_check`` lines with a ``grid``
+    case)."""
+    import itertools
+    import torch
+    from lisec_tpu_torch.ops import nms as nms_mod
+    gen = torch.Generator().manual_seed(22)
+    flipped = 0
+    for pre, k_near, block, variant, thr in itertools.product(
+            (64, 1024, 3000, 4096), (0, 8, 64), (4, 16),
+            ("one_stream", "class_parallel", "groups"), (0.2, 0.5)):
+        boxes, scores, labels, extra = nms_grid_inputs(gen, pre, variant)
+        with NMSRecorder() as rec:
+            out = nms_mod.rotated_nms(
+                boxes, scores, labels, iou_threshold=thr,
+                score_threshold=0.1, nms_pre=pre, nms_post=64, block=block,
+                k_near=k_near, **extra)
+        args, kw, got = rec.rounds[0]
+        row = check_nms_call(args, kw, got, f"grid {pre} {k_near} {block} "
+                             f"{variant} {thr}")
+        flipped += not row["equal"]
+        if row["emitted"] < 8:
+            raise AssertionError(f"grid {pre} {k_near} {block} {variant}: "
+                                 f"only {row['emitted']} kept")
+        emit("kernel_check", kernel="rotated_nms", case="grid",
+             variant=variant, kept=int(out.valid.sum()),
+             **nms_call_fields(args, kw), **row)
+    emit("nms_grid", configs=144, differing=flipped)
+
+
+def nms_main() -> int:
+    """``--nms``: the build and the NMS rounds' kernel alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    global CARD
+    CARD = card()
+    phase_build()
+    phase_nms_grid()
+    phase_nms_cells()
+    print(CARD)
+    print(json.dumps({"ok": True}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--nccl"]:
         sys.exit(nccl_main(sys.argv[2]))
     if sys.argv[1:2] == ["--centerpoint"]:
         sys.exit(centerpoint_main())
+    if sys.argv[1:2] == ["--nms"]:
+        sys.exit(nms_main())
     sys.exit(main())

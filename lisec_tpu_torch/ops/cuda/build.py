@@ -6,10 +6,12 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``ctypes``. A ``csrc/<name>.cc`` is host code, compiled the same way by
 ``g++`` for any x86-64 or aarch64 host (no ``-march``), without
 ``-ffast-math`` and without floating-point contraction, so that its f32
-arithmetic is IEEE's, operation for operation. The hash covers the
-source and the flags, so an edited source is rebuilt and a built one is
-reused. Nothing is compiled when a module is imported: a wrapper builds
-its library at its first call.
+arithmetic is IEEE's, operation for operation. A source may add flags of
+its own (``SOURCE_FLAGS``) and include headers beside it
+(``#include "x.cuh"``). The hash covers the source, the headers it
+includes and the flags, so an edited source or header is rebuilt and a
+built one is reused. Nothing is compiled when a module is imported: a
+wrapper builds its library at its first call.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +35,10 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC")
+# Flags of single sources, after the route's own. The NMS kernel's IoU
+# rounds every product and sum as torch's elementwise ops do.
+SOURCE_FLAGS = {"rotated_nms": ("-fmad=false", "-prec-div=true")}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -66,16 +73,22 @@ def source_path(name: str) -> Path:
 
 
 def _compiler(src: Path):
-    """(compiler, flags) for a source, chosen by its suffix."""
+    """(compiler, flags) for a source, chosen by its suffix, and the
+    source's own flags."""
+    extra = SOURCE_FLAGS.get(src.stem, ())
     if src.suffix == ".cu":
-        return nvcc_path, NVCC_FLAGS
-    return gxx_path, HOST_FLAGS
+        return nvcc_path, NVCC_FLAGS + extra
+    return gxx_path, HOST_FLAGS + extra
 
 
 def library_path(name: str) -> Path:
     src = source_path(name)
     flags = _compiler(src)[1]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    text = src.read_bytes()
+    headers = b"".join((src.parent / inc.decode()).read_bytes()
+                       for inc in _INCLUDE.findall(text)
+                       if (src.parent / inc.decode()).exists())
+    digest = hashlib.sha256(text + headers + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -13,6 +13,10 @@ state, as under ``vmap``.
 
 Every top-k here breaks ties by the lower index, as ``lax.top_k`` does:
 ``torch.topk`` promises no order for ties.
+
+On the card the rounds run in one hand-written kernel
+(``ops/cuda/rotated_nms.py``), of which ``_run_streams`` is the plain
+version that CPU tensors take.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from lisec_tpu_torch.ops.cuda import rotated_nms as nms_kernel
 from lisec_tpu_torch.ops.rotated_iou import rotated_iou_bev
 from lisec_tpu_torch.utils.profiling import span
 
@@ -193,8 +198,9 @@ def rotated_nms(
     class count, or the group count with ``groups``) runs one stream per
     class (group) and merges them by score, each stream emitting up to
     ``stream_post`` boxes where that is given (else ``nms_post``). Under
-    a profiler, the span ``nms``, and in it one ``nms.round`` a round and
-    ``nms.wait`` where the host waits for the card to learn whether
+    a profiler, the span ``nms``, and in it, on the card, ``nms.kernel``
+    around the one launch of the rounds' kernel; on the CPU one
+    ``nms.round`` a round and ``nms.wait`` where the host checks whether
     another round runs.
     """
     if select not in ("topk", "scan"):
@@ -212,7 +218,7 @@ def rotated_nms(
         top_keys = (top_labels if groups is None
                     else torch.gather(groups, 1, order))
         # The IoU and the prefilter read the first seven columns.
-        iou_boxes = top_boxes[..., :7]
+        iou_boxes = top_boxes[..., :7].contiguous()
         alive = top_scores > score_threshold
         half_diag = 0.5 * torch.hypot(top_boxes[..., 3], top_boxes[..., 4])
         kw = dict(iou_threshold=iou_threshold, score_threshold=score_threshold,
@@ -227,7 +233,7 @@ def rotated_nms(
             def rep(x):
                 return x.repeat_interleave(class_parallel, dim=0)
             kw["nms_post"] = stream_post or nms_post
-            oi, ov = _run_streams(
+            oi, ov = nms_kernel.run_streams(
                 alive_c.reshape(b * class_parallel, -1), rep(top_scores),
                 rep(iou_boxes), rep(top_keys), rep(half_diag), **kw)
             oi = oi.reshape(b, -1)
@@ -240,8 +246,9 @@ def rotated_nms(
             out_idx = torch.gather(oi, 1, mi)
             out_valid = torch.gather(ov, 1, mi)
         else:
-            out_idx, out_valid = _run_streams(
-                alive, top_scores, iou_boxes, top_keys, half_diag, **kw)
+            out_idx, out_valid = nms_kernel.run_streams(
+                alive, top_scores.contiguous(), iou_boxes, top_keys,
+                half_diag, **kw)
 
         vb = torch.where(out_valid[..., None], _rows(top_boxes, out_idx), 0.0)
         vs = torch.where(out_valid, torch.gather(top_scores, 1, out_idx), 0.0)
