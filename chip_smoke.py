@@ -182,8 +182,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    GT database's build, one save and one restore, and ``train(cfg)``'s
    clouds/s with the augmentation on and off beside the host's batches
    alone;
-12. the voxel-buffer PointPillars, the 3-class config, the int16 wire
-   and the bench: ``segment_paint`` bit-equal to its plain version on
+12. the voxel-buffer PointPillars, the 3-class config and the int16
+   wire: ``segment_paint`` bit-equal to its plain version on
    the voxel table's calls ((B, 32768, 8) rows into 12,000 x 32 slots a
    cloud) of ray-cast scenes at batch 8 and 32 and of edge clouds (a
    pillar of 500 points, more than 12,000 non-empty pillars, all
@@ -200,9 +200,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    bit-equal to ``infer`` on the batch it dequantizes to, within the
    JAX package's wire bounds of the f32 ``infer``, the card's
    dequantization bit-equal to the CPU's, both wires' bytes and
-   end-to-end ms at batch 8 and 32; ``bench_lib.run_benchmark`` at batch
-   32 with the snapshot and SECOND, and ``python -m lisec_tpu_torch.cli
-   bench`` once as a subprocess, each record on its own line;
+   end-to-end ms at batch 8 and 32;
 13. list under ``torch.profiler`` what ``pillar_canvas_fused``,
    ``fps_gather``, ``scatter_rows``, ``segment_paint``, ``gather_rows``,
    the grouping and ``spread_accumulate`` calls run (the outputs' and
@@ -4725,13 +4723,11 @@ def phase_configs_as_written(tmp):
     return result
 
 
-# -- phase 12: the voxel-buffer path, the int16 wire and the bench ------------
+# -- phase 12: the voxel-buffer path and the int16 wire ----------------------
 
 VOXEL_BUFFER = ("model.params.fused=false",)
 THREE_CLASS_CFG = os.path.join(ROOT, "configs",
                                "pointpillars_kitti_3class.yaml")
-BENCH_OVERRIDES = ("data.fixture=true", "data.fixture_size=8",
-                   "data.augment.enabled=false", "train.ckpt_dir=")
 VOXEL_BUFFER_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 1, "segment_unpaint": 0,
     "spread_accumulate": 0, "fps": 0, "gather_rows": 0, "scatter_rows": 0,
@@ -5076,43 +5072,6 @@ def phase_wire(pipe, cfg):
          h2d_bytes=h2d, h2d_saved_bytes=h2d["f32"] - h2d["int16"],
          e2e=times)
     return launches["pillar_canvas_fused"]
-
-
-def phase_bench():
-    """``run_benchmark`` in this process at batch 32 with the trained
-    snapshot and SECOND, and ``python -m lisec_tpu_torch.cli bench`` once
-    as a subprocess (batch 8, seed weights); each record printed on its
-    own line."""
-    import torch
-    from lisec_tpu_torch.bench_lib import run_benchmark
-    from lisec_tpu_torch.config import apply_overrides, load_config
-    cfg = apply_overrides(load_config(KITTI_CFG), list(BENCH_OVERRIDES))
-    t0 = time.perf_counter()
-    record = run_benchmark(cfg, batch_size=32, include_second=True,
-                           weights_path=WEIGHTS)
-    emit("bench", source="run_benchmark", batch=32,
-         seconds=time.perf_counter() - t0, record=record)
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "lisec_tpu_torch.cli", "bench", KITTI_CFG,
-         *BENCH_OVERRIDES], cwd=ROOT, capture_output=True, text=True,
-        timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"cli bench exited {res.returncode}: "
-                             f"{res.stderr[-2000:]}")
-    cli_record = json.loads(res.stdout.strip().splitlines()[-1])
-    emit("bench", source="cli", batch=8, seconds=time.perf_counter() - t0,
-         record=cli_record)
-    name = torch.cuda.get_device_name(0)
-    for rec in (record, cli_record):
-        d = rec["detail"]
-        if d["device"] != name or not all(
-                rec[k] > 0 for k in ("device_clouds_per_sec",
-                                     "e2e_clouds_per_sec")) \
-                or d["e2e_f32_clouds_per_sec"] <= 0:
-            raise AssertionError(f"bench record: {rec}")
-    if "second_clouds_per_sec" not in record["detail"]:
-        raise AssertionError("run_benchmark left SECOND out")
 
 
 # What one call of each wrapper launches where the device-time phase
@@ -6202,7 +6161,6 @@ def main() -> int:
     vb_train_rows = phase_train_timing(vb_name, *vb_train[:3])
     three_class_launches = phase_three_class()
     packed_launches = phase_wire(pipe, cfg)
-    phase_bench()
     phase_profile_listing()
     phase_device_times()
     under_dp = phase_data_parallel(pipe, cfg)

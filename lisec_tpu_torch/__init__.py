@@ -30,10 +30,10 @@ counterpart. Training saves checkpoints to ``train.ckpt_dir`` and
 resumes from them (``train.resume``), with the detectors' augmentation
 (GT sampling, per-box noise, global transforms), the TensorBoard mirror
 and NaN checks; ``python -m lisec_tpu_torch.cli`` has ``train``,
-``eval``, ``infer`` and ``bench`` (``bench_lib.run_benchmark``, on the
-card). Serving also takes the int16 wire (``data/wire.py``,
-``Pipeline.infer_packed``), and ``model.params.fused: false`` builds the
-voxel-buffer PointPillars. Data parallelism (``parallel/``): ``train``
+``eval`` and ``infer``, and ``python3 portbench/run.py --workload
+<cell>`` measures the port end to end on the card. Serving also takes
+the int16 wire (``data/wire.py``, ``Pipeline.infer_packed``), and
+``model.params.fused: false`` builds the voxel-buffer PointPillars. Data parallelism (``parallel/``): ``train``
 with ``train.num_devices`` W > 1 runs one process a rank (``torchrun``;
 NCCL on the card, gloo on the CPU) and computes what one device computes
 on the global batch; ``Pipeline.infer_dp`` predicts a global batch's

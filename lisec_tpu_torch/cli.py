@@ -3,7 +3,6 @@
     python -m lisec_tpu_torch.cli train <config> [key=value ...]
     python -m lisec_tpu_torch.cli eval  <config> [key=value ...]
     python -m lisec_tpu_torch.cli infer <config> --cloud path [--ckpt dir]
-    python -m lisec_tpu_torch.cli bench <config> [key=value ...]
 
 Every verb runs on the card. ``train`` also runs data-parallel under
 ``torchrun`` (one process a card, NCCL; gloo for ``device="cpu"``),
@@ -11,19 +10,16 @@ with ``train.num_devices`` 0 or the number of ranks:
 
     torchrun --nproc_per_node 4 -m lisec_tpu_torch.cli train <config>
 
-``infer``, ``eval`` and ``bench`` run on one process. ``infer`` restores
-the latest checkpoint of ``--ckpt`` (else of ``train.ckpt_dir``) before
-it predicts and prints the first cloud's outputs as JSON. ``bench``
-prints one JSON line of ``bench_lib.run_benchmark``; it measures on the
-card only.
+``infer`` and ``eval`` run on one process. ``infer`` restores the
+latest checkpoint of ``--ckpt`` (else of ``train.ckpt_dir``) before it
+predicts and prints the first cloud's outputs as JSON. The port is
+measured by ``python3 portbench/run.py --workload <cell>``, not here.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-
-import torch
 
 from lisec_tpu_torch.config import apply_overrides, load_config
 
@@ -35,7 +31,7 @@ def main(argv=None, device="cuda"):
     parser = argparse.ArgumentParser(prog="lisec-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    for name in ("train", "eval", "bench"):
+    for name in ("train", "eval"):
         p = sub.add_parser(name)
         p.add_argument("config")
         p.add_argument("overrides", nargs="*")
@@ -78,12 +74,6 @@ def main(argv=None, device="cuda"):
             {k: v[0].cpu().tolist() for k, v in out.items()
              if k != "logits"}, indent=2))
         return out
-    elif args.command == "bench":
-        if torch.device(device).type != "cuda":
-            raise ValueError("bench measures on the card; there is no "
-                             f"{device!r} benchmark")
-        from lisec_tpu_torch.bench_lib import run_benchmark
-        print(json.dumps(run_benchmark(cfg)))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@
 model that the JAX package has, the draw equals its ``init_state(0)``
 of the same config, every value. The JAX side runs on a one-cloud input
 over a 6.4 m square: the parameters' shapes and draws do not depend on
-the input's. CenterPoint exists in the port only: its golden alone."""
+the input's. CenterPoint exists in the port only: its golden alone.
+Every draw also goes through the weight map and back
+(``to_flax_arrays``, ``convert_flax_arrays``, a strict
+``load_state_dict``) to the same digests."""
 
 import json
 import os
@@ -20,7 +23,8 @@ from lisec_tpu.config import apply_overrides as jax_apply_overrides
 from lisec_tpu.config import load_config as jax_load_config
 from lisec_tpu import models as _jax_models  # noqa: F401 (its registry)
 from lisec_tpu.registry import _PIPELINES as JAX_PIPELINES
-from lisec_tpu_torch.weights import state_digests, to_flax_arrays
+from lisec_tpu_torch.weights import (
+    convert_flax_arrays, state_digests, to_flax_arrays)
 from tests.make_torch_init_digests import GOLDEN, ROOT, shipped_configs
 from tests.test_torch_init import assert_same_draw, jax_leaves
 
@@ -38,6 +42,13 @@ def _config(name):
 
 JAX_CONFIGS = [n for n in CONFIGS if _config(n).model.name in JAX_PIPELINES]
 PORT_ONLY = [n for n in CONFIGS if n not in JAX_CONFIGS]
+
+
+def assert_the_map_keeps_the_digests(model, digests):
+    model.load_state_dict(convert_flax_arrays(
+        to_flax_arrays(model), getattr(model, "FLAX_KEYS", None)),
+        strict=True)
+    assert state_digests(model) == digests
 
 
 @pytest.fixture(scope="module")
@@ -58,6 +69,7 @@ def test_full_width_draw_equals_the_golden_and_jax(name, golden):
                                        device="cpu")
     port.init_state(0)
     assert state_digests(port.model) == golden[name]
+    assert_the_map_keeps_the_digests(port.model, golden[name])
     jax_pipe = lisec_tpu.build_model(
         jax_apply_overrides(jax_load_config(path), SMALL))
     assert_same_draw(to_flax_arrays(port.model),
@@ -69,3 +81,4 @@ def test_port_only_full_width_draw_equals_the_golden(name, golden):
     port = lisec_tpu_torch.build_model(_config(name), device="cpu")
     port.init_state(0)
     assert state_digests(port.model) == golden[name]
+    assert_the_map_keeps_the_digests(port.model, golden[name])

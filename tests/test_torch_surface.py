@@ -54,10 +54,16 @@ _LANES = ("a TPU lane layout (columns of 128 lanes); the port computes in "
 _SPANS = ("a fenced wall-clock timer of stages; the port's spans "
           "(utils.profiling.span) time its stages on the host and on the "
           "card's stream under a profiler")
+_PORTBENCH = "measured by `portbench/`"
 JAX_ONLY = {
     "lisec_tpu.bench_lib:chain_time":
         "a lax.scan loop that times a chain of calls on the device; the "
         "port times with CUDA events (bench_lib.event_seconds)",
+    "lisec_tpu.bench_lib:bench_inference": _PORTBENCH,
+    "lisec_tpu.bench_lib:bench_second": _PORTBENCH,
+    "lisec_tpu.bench_lib:bench_voxelize": _PORTBENCH,
+    "lisec_tpu.bench_lib:measure_sync_floor": _PORTBENCH,
+    "lisec_tpu.bench_lib:run_benchmark": _PORTBENCH,
     "lisec_tpu.pipelines:TrainState":
         "a flax train state; the port's pipeline holds its model and "
         "optimizer (Pipeline.state_dict())",
