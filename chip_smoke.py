@@ -7,8 +7,9 @@
     python3 chip_smoke.py --nms
 
 The second form runs only phase 14's data-parallel checks, on NCCL with
-one rank a card (four cards of one host); the third only the build and
-phase 5's CenterPoint serving; the fourth only the build and the NMS
+one rank a card (four cards of one host); the third only the build, the
+fused sparse conv's edge cases and phase 5's CenterPoint serving; the
+fourth only the build and the NMS
 rounds' kernel (``phase_nms_cells`` and ``phase_nms_grid``).
 
 Phases, each of which fails the run (nonzero exit) when it goes wrong:
@@ -30,7 +31,12 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    ``spread_accumulate`` on the rulebooks of ray-cast scenes at SECOND's
    full width (the nine convs of a batch-8 predict; the submanifold ones
    with the inverse map the encoder hands them, the strided ones also on
-   scratch filled with garbage) and on edge cases, bit for bit, and the
+   scratch filled with garbage) and on edge cases, bit for bit; the
+   sparse convs' fused kernel (``spread_conv``) on the same nine convs'
+   own features and weights (and three in f32) and on edge cases (Cin
+   4, 5 and 128, odd Cout, K 3, empty and full maps, features off 16
+   bytes), against the einsum + spread pair it replaced, within one
+   bf16 ulp of each landed product (``spread_conv_tolerance``); and the
    sparse conv's ``Function`` forward and backward; ``threefry`` (the
    dropout masks of the reference's threefry stream) bit-equal to its
    plain version at part seg's (16, 2048, 128) and the classifiers'
@@ -71,7 +77,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    its paint call bit-equal to the plain version, both builders timed;
    then SECOND with ``downsample: footprint`` the same way
    (``configs/second_kitti_footprint.yaml`` at batch 8 and 1, the spread
-   on its nine convs bit-equal, the launches as dilate's), every kernel
+   and the fused kernel on its nine convs, the launches as dilate's),
+   every kernel
    call of a ``configs/second_footprint_conv.yaml`` train step at batch 4
    against its plain version, also with every level cut to a smaller
    budget (``FOOTPRINT_TRUNCATED``), and its train steps as phase 4's;
@@ -79,9 +86,13 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    width, bf16, the benchmark cell's calibrated seed weights, ray-cast
    10-sweep frames)
    through ``infer_packed`` at batch 4 and 1 with the counts set to 0
-   just before and read just after (21 spreads and 2 paints, nothing
-   else), every spread and paint call of a batch-4 predict against its
-   plain version;
+   just before and read just after (21 fused convs, 4 of them building
+   their map, and 2 paints, nothing else), every fused conv of a batch-4
+   predict against the pair it replaced and timed beside its bound, that
+   pair and the copy-free pair (broadcast ``matmul`` + spread), with the
+   share of (tile, offset) pairs it skips; the conv's forward profiled
+   (the fused kernel alone, no product, GEMM or copy); every paint call
+   against its plain version;
 6. time the PointPillars predict at batch 8 and 32, the SECOND predict
    (dilate and footprint) at batch 1 and 8 with its stages (and its two
    paint calls at batch 8), the three detector train steps and their parts at batch 4, and every kernel, its
@@ -172,8 +183,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    checkpoint directory, only ``train.ckpt_dir``, ``train.num_steps`` and
    ``train.ckpt_every`` overridden: the launch counts set to 0 just
    before and read just after each run (3 paints and 2 unpaint-source
-   launches a PointPillars step; 9 spreads, 3 paints and 10 unpaints a
-   SECOND step), the checkpoints kept and ``metrics.jsonl``; resume on
+   launches a PointPillars step; 9 fused convs (3 building their map),
+   3 paints and 10 unpaints a SECOND step), the checkpoints kept and
+   ``metrics.jsonl``; resume on
    the card (two unbroken PointPillars runs, and one killed after its
    step-3 save and resumed, bit-equal in every parameter, running
    statistic and optimizer moment); the command line's ``infer`` from a
@@ -207,8 +219,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
    scratch's allocation and the kernels' own launches, nothing else;
    the paint and the spread also at the range-seg predict's shapes),
    then take the device time of every timed call of the encoder, FPS,
-   the paint, the scatter, the gathers, the spreads of a batch-8
-   SECOND predict and of the range-seg predicts, and the unpaint
+   the paint, the scatter, the gathers, the fused convs of a batch-8
+   SECOND predict, the spreads of the range-seg predicts, and the unpaint
    source's calls of both train steps (and the plain C = 4 gather beside
    ``torch.gather``), by kernel (after the timed phases, so that no trace
    touches them);
@@ -799,8 +811,8 @@ def phase_segment_kernel_check(gen):
 def swapped_segment_ops(**new):
     """Swap the segment wrappers named in ``new`` (``segment_paint``,
     ``segment_unpaint``, ``segment_max_backward``, ``pillar_decorate``,
-    ``spread_accumulate``) in the modules that call them, here only: the
-    package has no switch on the card."""
+    ``spread_accumulate``, ``spread_conv``) in the modules that call them,
+    here only: the package has no switch on the card."""
     from importlib import import_module
     from lisec_tpu_torch.models import pillar_encoder
     from lisec_tpu_torch.ops import range_proj, scatter, sparse_conv
@@ -826,12 +838,14 @@ def plain_segment_ops():
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
     return swapped_segment_ops(
         segment_paint=sp.segment_paint_reference,
         segment_unpaint=su.segment_unpaint_reference,
         segment_max_backward=su.segment_max_backward_reference,
         pillar_decorate=su.pillar_decorate_reference,
-        spread_accumulate=sa.spread_accumulate_reference)
+        spread_accumulate=sa.spread_accumulate_reference,
+        spread_conv=sc.spread_conv_reference)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -977,18 +991,25 @@ def train_config(path, num_steps, log_every=1, overrides=()):
 
 
 def segment_launches():
+    """Launches of the segment kernels, the spread, and the sparse conv's
+    fused kernel (``spread_conv``) with the inverse maps it built
+    (``spread_invert``)."""
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
     return {"segment_paint": sp.LAUNCHES, "segment_unpaint": su.LAUNCHES,
-            "spread_accumulate": sa.LAUNCHES}
+            "spread_accumulate": sa.LAUNCHES, "spread_conv": sc.LAUNCHES,
+            "spread_invert": sc.INVERT_LAUNCHES}
 
 
 def zero_segment_launches():
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
     sp.LAUNCHES = su.LAUNCHES = sa.LAUNCHES = 0
+    sc.LAUNCHES = sc.INVERT_LAUNCHES = 0
 
 
 def loss_and_grads(pipe, batch):
@@ -1210,6 +1231,166 @@ def spread_call_row(vals, targets, num_out, sources=None, timed=False):
     return row
 
 
+TENSOR_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+
+
+def spread_conv_pair(features, weights, targets, num_out, sources=None):
+    """What the sparse conv ran before the fused kernel: every offset's
+    product of every padded row as an einsum (a permuted view), its copy
+    into the (B, K, V_in, Cout) stream, and the spread kernel."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    z = torch.einsum("bvc,kcd->bkvd", features, weights)
+    return sa.spread_accumulate(z.contiguous(), targets, num_out=num_out,
+                                sources=sources)
+
+
+def spread_conv_library(features, weights, targets, num_out, sources=None):
+    """The copy-free pair: a broadcast ``matmul`` that writes the (B, K,
+    V_in, Cout) stream in place, and the spread kernel."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    z = torch.matmul(features.unsqueeze(1), weights)
+    return sa.spread_accumulate(z, targets, num_out=num_out,
+                                sources=sources)
+
+
+def spread_conv_tolerance(features, weights, targets, num_out):
+    """Per output element, how far the fused kernel may lie from the pair
+    (``spread_conv_pair``). The two round each offset's product at the
+    same point and add the offsets in f32 in the same order; only the
+    order inside each Cin sum differs (the tensor cores' against the
+    GEMM's), which can move a bf16 rounding by one unit. So, in bf16, the
+    sum over the landed products of one bf16 ulp of each, plus 2^-16 of
+    the sum of their |x| |w| (a Cin-term f32 sum in two orders, and the
+    running f32 sum, when products cancel); in f32, 2e-5 of the largest
+    element."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    if features.dtype == torch.float32:
+        pair = spread_conv_pair(features, weights, targets, num_out)
+        return torch.full_like(pair, 2e-5 * float(pair.abs().max()))
+    z = torch.einsum("bvc,kcd->bkvd", features, weights).float()
+    _, e = torch.frexp(z)
+    ulp = torch.where(z != 0, torch.ldexp(torch.ones_like(z), e - 8), 0.0)
+    del z
+    tol = sa.spread_accumulate(ulp.contiguous(), targets, num_out=num_out)
+    del ulp
+    mag = torch.einsum("bvc,kcd->bkvd", features.float().abs(),
+                       weights.float().abs())
+    return tol + 2.0 ** -16 * sa.spread_accumulate(
+        mag.contiguous(), targets, num_out=num_out)
+
+
+def check_spread_conv(what, features, weights, targets, num_out,
+                      sources=None):
+    """The fused kernel on one call against the pair, twice (the two runs
+    bit-equal), each element within ``spread_conv_tolerance``. Returns
+    its ``kernel_check`` fields."""
+    import torch
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
+    got = sc.spread_conv(features, weights, targets, num_out=num_out,
+                         sources=sources)
+    again = sc.spread_conv(features, weights, targets, num_out=num_out,
+                           sources=sources)
+    torch.cuda.synchronize()
+    pair = spread_conv_pair(features, weights, targets, num_out)
+    tol = spread_conv_tolerance(features, weights, targets, num_out)
+    d = (got - pair).abs()
+    over = d > tol
+    if over.any():
+        i = int(torch.nonzero(over.flatten())[0])
+        raise AssertionError(
+            f"spread_conv {what}: {int(over.sum())} elements beyond the "
+            f"tolerance, first {float(got.flatten()[i])} against "
+            f"{float(pair.flatten()[i])}, allowed {float(tol.flatten()[i])}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"spread_conv {what}: two runs differ")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"spread_conv {what}: non-finite output")
+    return dict(kernel="spread_conv", case=what,
+                features=list(features.shape), weights=list(weights.shape),
+                dtype=str(features.dtype), num_out=num_out,
+                inverse_map="given" if sources is not None else "built",
+                rows_landed=int(((targets >= 0) & (targets < num_out)).sum()),
+                elements_differing_from_pair=int((d > 0).sum()),
+                elements=d.numel(), max_abs_diff=float(d.max()),
+                largest_share_of_tolerance=float(
+                    (d / tol.clamp_min(1e-38)).max()),
+                two_runs_identical=True)
+
+
+def spread_conv_bound(features, weights, targets, num_out, in_of, given):
+    """Least ms of a fused call: by bytes, the ids it is handed read once
+    (the inverse map where ``given``, else the rulebook), the landed
+    input rows and the f32 table written once; by operations, the
+    products of the (tile, offset) pairs of the inverse map ``in_of``
+    that the kernel does not skip, at Cin and Cout rounded up to its 16
+    and 8, over the bf16 tensor-core rate (f32: the f32 rate). Also the
+    bound the benchmark's ``spread_accumulate_roofline`` divides: the
+    rulebook, the landed rows at Cout in bf16 and the table."""
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
+    b, v_in, cin = features.shape
+    k, _, cout = weights.shape
+    landed = int(((targets >= 0) & (targets < num_out)).sum())
+    nbytes = ((in_of if given else targets).nbytes
+              + landed * cin * features.element_size()
+              + b * num_out * cout * 4)
+    live = (1.0 - sc.skipped_share(in_of)) * b * k * (
+        -(-num_out // sc.TILE_ROWS))
+    flops = live * 2.0 * sc.TILE_ROWS * (-(-cin // 16) * 16) * (
+        -(-cout // 8) * 8)
+    rate = TENSOR_FLOPS if features.element_size() == 2 else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    bench = (targets.nbytes + landed * cout * 2 + b * num_out * cout * 4
+             ) / HBM_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, landed, bench)
+
+
+def spread_conv_call_row(features, weights, targets, num_out, sources=None,
+                         timed=False):
+    """One fused call timed on the tensors a path handed it: the kernel
+    (``ms``; one launch, two where it builds its map), the pair it
+    replaced (``pair_ms``: einsum, the stream's copy, the spread kernel),
+    the copy-free pair (``library_ms``: a broadcast ``matmul`` into the
+    stream, the spread kernel), the plain version, the bound, and the
+    share of (tile, offset) pairs it skips. ``timed``: the kernels' own
+    time is taken at the end (``device_ms``)."""
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
+    in_of = sources if sources is not None else inverse_map(targets,
+                                                            num_out)
+    bound, by, nbytes, landed, bench = spread_conv_bound(
+        features, weights, targets, num_out, in_of, sources is not None)
+
+    def call():
+        return sc.spread_conv(features, weights, targets, num_out=num_out,
+                              sources=sources)
+    row = dict(
+        features=list(features.shape), weights=list(weights.shape),
+        dtype=str(features.dtype), num_out=num_out,
+        inverse_map="given" if sources is not None else "built",
+        rows_landed=landed, skipped_share=sc.skipped_share(in_of),
+        ms=cuda_ms(call, 20),
+        pair_ms=cuda_ms(lambda: spread_conv_pair(
+            features, weights, targets, num_out, sources), 10),
+        library_ms=cuda_ms(lambda: spread_conv_library(
+            features, weights, targets, num_out, sources), 10),
+        plain_ms=cuda_ms(lambda: sc.spread_conv_reference(
+            features, weights, targets, num_out=num_out), 2, warmup=1),
+        bound_ms=bound, bound_by=by, bytes=nbytes,
+        benchmark_bound_ms=bench)
+    if timed:
+        row["expect_launches"] = {"spread_accumulate_kernel_mma"
+                                  if features.element_size() == 2 else
+                                  "spread_accumulate_kernel_fma": 1}
+        if sources is None:
+            row["expect_launches"]["spread_invert_kernel"] = 1
+        DEVICE_TIMED.append(("spread_conv", row, call))
+    return row
+
+
 def paint_call_row(vals, ids, nc, num_max, split):
     """One ``segment_paint`` call timed on the tensors a path handed it:
     the wrapper (one launch, no glue; ``device_ms``, filled in at the end,
@@ -1345,14 +1526,17 @@ def unpaint_call_row(entry, args, kw):
 
 @contextlib.contextmanager
 def recorded_segment_calls(calls):
-    """Record what the paint, unpaint-source and spread wrappers are
-    handed, by kernel, in the dict ``calls`` (values detached), while they
-    run as they are. An unpaint-source call is recorded as (entry, args,
-    keywords)."""
+    """Record what the paint, unpaint-source, spread and fused-conv
+    wrappers are handed, by kernel, in the dict ``calls`` (values
+    detached), while they run as they are. An unpaint-source call is
+    recorded as (entry, args, keywords), a fused conv's as (features,
+    weights, targets, num_out, sources)."""
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
-    for k in ("segment_paint", "segment_unpaint", "spread_accumulate"):
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
+    for k in ("segment_paint", "segment_unpaint", "spread_accumulate",
+              "spread_conv"):
         calls[k] = []
 
     def rec_paint(vals, ids, *, num_cells, num_max, split=None):
@@ -1375,8 +1559,15 @@ def recorded_segment_calls(calls):
                                            sources))
         return sa.spread_accumulate(vals, targets, num_out=num_out,
                                     sources=sources)
+
+    def rec_conv(features, weights, targets, *, num_out, sources=None):
+        calls["spread_conv"].append((features.detach(), weights.detach(),
+                                     targets, num_out, sources))
+        return sc.spread_conv(features, weights, targets, num_out=num_out,
+                              sources=sources)
     with swapped_segment_ops(
             segment_paint=rec_paint, spread_accumulate=rec_spread,
+            spread_conv=rec_conv,
             **{e: recorder(e) for e in UNPAINT_ENTRIES}):
         yield
 
@@ -1427,7 +1618,9 @@ def phase_train_timing(name, pipe, cfg, batch):
     with recorded_segment_calls(calls):
         loss_and_grads(pipe, batch)
     rows = {"spread_accumulate": [spread_call_row(*call) for call
-                                  in calls["spread_accumulate"]]}
+                                  in calls["spread_accumulate"]],
+            "spread_conv": [spread_conv_call_row(*call) for call
+                            in calls["spread_conv"]]}
 
     rows["segment_paint"] = [paint_call_row(*call)
                              for call in calls["segment_paint"]]
@@ -1601,6 +1794,78 @@ def spread_on_scratch(vals, targets, num_out, scratch):
     return out
 
 
+# Every fused-conv check of the run, for the kernel summary.
+SPCONV_CHECKS = []
+
+
+def spconv_check(what, features, weights, targets, num_out, sources=None):
+    """``check_spread_conv``, its line emitted and kept."""
+    row = check_spread_conv(what, features, weights, targets, num_out,
+                            sources)
+    SPCONV_CHECKS.append(row)
+    emit("kernel_check", **row)
+    return row
+
+
+def random_scatter_rulebook(gen, b, k, n, num_out, fill):
+    """A scatter rulebook (B, K, n) int32 on the card: per (b, k) a
+    random ``fill`` share of the input rows onto distinct output rows,
+    the rest -1."""
+    import torch
+    tg = torch.full((b, k, n), -1, dtype=torch.int32)
+    m = min(int(fill * n), num_out)
+    for bk in range(b * k):
+        rows = torch.randperm(n, generator=gen)[:m]
+        tg.view(-1, n)[bk, rows] = torch.randperm(
+            num_out, generator=gen)[:m].to(torch.int32)
+    return tg.cuda()
+
+
+def phase_spread_conv_edges(gen):
+    """The fused kernel off the models' shapes: Cin 4 and 5 (a first
+    conv's, padded in shared memory), Cin and Cout at 128, odd and
+    narrow Cout, K 3, an empty map, every offset onto every row, a
+    tile's worth of rows and fewer, features off 16 bytes, and ids
+    outside the table, in bf16 and f32, each with its map given and
+    built; against the pair."""
+    import torch
+    gen = torch.Generator().manual_seed(gen.initial_seed() + 24)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen).cuda().to(dtype)
+    cases = (("cin4", 2, 27, 3000, 4, 16, 2500, 0.3),
+             ("cin5", 2, 27, 3000, 5, 16, 2500, 0.3),
+             ("cin128_cout128", 2, 27, 1500, 128, 128, 1400, 0.3),
+             ("cin64_cout128_k3", 2, 3, 2000, 64, 128, 1200, 0.6),
+             ("cout10", 1, 27, 700, 16, 10, 640, 0.5),
+             ("cin24_cout40", 1, 27, 700, 24, 40, 650, 0.5),
+             ("one_row", 1, 27, 5, 16, 16, 1, 0.2),
+             ("ragged_tile", 3, 8, 100, 32, 32, 65, 0.9),
+             ("empty_map", 2, 27, 500, 16, 32, 400, 0.0),
+             ("every_offset_every_row", 2, 27, 256, 32, 64, 256, 1.0))
+    for what, b, k, n, cin, cout, num_out, fill in cases:
+        targets = random_scatter_rulebook(gen, b, k, n, num_out, fill)
+        if what == "ragged_tile":
+            # Ids past the table and below -1 drop their row.
+            targets[:, :, :7] = torch.tensor(
+                [num_out, num_out + 3, -5, -1, 2 ** 30, -2 ** 31, 10 ** 9],
+                dtype=torch.int32, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn((b, n, cin), dtype)
+            w = randn((k, cin, cout), dtype) / cin ** 0.5
+            spconv_check(f"edge_{what}", x, w, targets, num_out)
+            spconv_check(f"edge_{what}_given_map", x, w, targets, num_out,
+                         inverse_map(targets, num_out))
+    # Features 2 bytes off 16: the plain row copies instead of cp.async.
+    x = randn((2 * 600 * 32 + 1,), torch.bfloat16)[1:].view(2, 600, 32)
+    if x.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned case is aligned")
+    targets = random_scatter_rulebook(gen, 2, 27, 600, 500, 0.4)
+    spconv_check("edge_features_not_16_byte_aligned", x,
+                 randn((27, 32, 32), torch.bfloat16) / 32 ** 0.5, targets,
+                 500)
+
+
 def phase_spread_kernel_check(pipe, cfg, gen, prefix="", edges=True):
     """``spread_accumulate`` on the card against its plain version, bit
     for bit and twice: on the scatter rulebooks of ray-cast scenes at
@@ -1750,10 +2015,26 @@ def phase_spread_kernel_check(pipe, cfg, gen, prefix="", edges=True):
         check("vals_not_16_byte_aligned", off, ident[:, :, :512].cuda()
               .contiguous(), 512)
 
-    # The conv's Function, kernels against plain versions: the same
-    # products around them, so the forward must be bit-equal; the
-    # backward's two products take the gathered rows, bit-equal too, and
-    # are held to 1e-6 of their L2 norm.
+    # The fused kernel on every conv of the path, on the features and
+    # weights the path hands it (bf16), the submanifold ones with their
+    # map and the strided ones building theirs, against the pair it
+    # replaced; three of them also in f32.
+    for i, (layer, feats, out_of, valid, *given) in enumerate(convs):
+        x, w = feats.to(layer.dtype).contiguous(), layer.weight.to(
+            layer.dtype).contiguous()
+        spconv_check(f"{prefix}conv{i}", x, w, out_of, valid.shape[1],
+                     given[0] if given else None)
+        if i in (0, 6, 8):
+            spconv_check(f"{prefix}conv{i}_f32", x.float(), w.float(),
+                         out_of, valid.shape[1], given[0] if given else None)
+    if edges:
+        phase_spread_conv_edges(gen)
+
+    # The conv's Function, kernels against plain versions: the forward
+    # within the fused kernel's tolerance of the pair (the plain
+    # Function is the pair's plain version, bit-equal to it); the
+    # backward's two products take the gathered rows, bit-equal, and are
+    # held to 1e-6 of their L2 norm.
     for i in (0, 8):
         layer, feats, out_of, valid, *given = convs[i]
         g = randn((feats.shape[0], valid.shape[1], layer.weight.shape[2]),
@@ -1770,9 +2051,13 @@ def phase_spread_kernel_check(pipe, cfg, gen, prefix="", edges=True):
                 (y * g).sum().backward()
             torch.cuda.synchronize()
             outs.append((y.detach(), x.grad.float(), w.grad.float()))
-        if not torch.equal(outs[0][0], outs[1][0]):
+        tol = spread_conv_tolerance(feats.to(layer.dtype).contiguous(),
+                                    layer.weight.to(layer.dtype),
+                                    out_of, valid.shape[1])
+        if ((outs[0][0] - outs[1][0]).abs() > tol).any():
             raise AssertionError(f"{prefix}sparse conv {i}: forward "
-                                 "differs from the plain Function")
+                                 "beyond the tolerance of the plain "
+                                 "Function")
         rel = [float((a - p).norm() / p.norm().clamp_min(1e-30))
                for a, p in zip(outs[0][1:], outs[1][1:])]
         if max(rel) > 1e-6:
@@ -1782,18 +2067,27 @@ def phase_spread_kernel_check(pipe, cfg, gen, prefix="", edges=True):
              case=f"{prefix}conv{i}", conv=i,
              features=list(feats.shape), out_rows=valid.shape[1],
              inverse_map="given" if given else "built",
-             forward="bit-equal", grad_rel_l2=rel,
+             forward="within the fused tolerance",
+             forward_bit_equal=torch.equal(outs[0][0], outs[1][0]),
+             grad_rel_l2=rel,
              backward_bit_equal=all(torch.equal(a, p) for a, p in
                                     zip(outs[0][1:], outs[1][1:])))
     return worst
 
 
+# No sparse conv: no launch of the fused kernel, no inverse map built.
+NO_SPCONV = {"spread_conv": 0, "spread_invert": 0}
+# A SECOND predict or step: the nine sparse convs are one fused launch
+# each, the three strided ones building their inverse map first.
 SECOND_LAUNCHES_PER_PREDICT = {"segment_paint": 2, "segment_unpaint": 0,
-                               "spread_accumulate": 9}
+                               "spread_accumulate": 0, "spread_conv": 9,
+                               "spread_invert": 3}
 SECOND_LAUNCHES_PER_TRAIN_STEP = {"segment_paint": 3, "segment_unpaint": 10,
-                                  "spread_accumulate": 9}
+                                  "spread_accumulate": 0, "spread_conv": 9,
+                                  "spread_invert": 3}
 POINTPILLARS_LAUNCHES_PER_TRAIN_STEP = {
-    "segment_paint": 3, "segment_unpaint": 2, "spread_accumulate": 0}
+    "segment_paint": 3, "segment_unpaint": 2, "spread_accumulate": 0,
+    **NO_SPCONV}
 
 
 def phase_second_serving(pipe, cfg, config="second_kitti"):
@@ -1866,11 +2160,12 @@ def phase_second_serving(pipe, cfg, config="second_kitti"):
 
 
 # A CenterPoint predict: the voxelizer's paint and the densify's, and
-# one spread a sparse conv (conv_input, 4 x 4 blocks' convs, 3 strided
-# convs, conv_out: 21; the submanifold ones hand their map, the strided
-# ones build theirs, two kernel launches each).
+# one fused launch a sparse conv (conv_input, 4 x 4 blocks' convs, 3
+# strided convs, conv_out: 21; the submanifold ones hand their map, the
+# four strided ones build theirs first), no spread of a product stream.
 CENTERPOINT_LAUNCHES_PER_PREDICT = {"segment_paint": 2, "segment_unpaint": 0,
-                                    "spread_accumulate": 21}
+                                    "spread_accumulate": 0,
+                                    "spread_conv": 21, "spread_invert": 4}
 
 
 def nusc_batch(cfg, b, seed0=0):
@@ -1926,16 +2221,20 @@ def phase_centerpoint_serving():
     frames) through
     ``infer_packed`` at batch 4 and 1 with the launch counts set to 0 just
     before and read just after (``CENTERPOINT_LAUNCHES_PER_PREDICT``);
-    every ``spread_accumulate`` and ``segment_paint`` call of a batch-4
-    predict held against its plain version (the spread bit for bit, the
-    paint as ``check_paint`` holds it, its bits compared too); the
-    device-resident predict at batch 4 and 1 timed. Returns the launches
-    of a predict."""
+    every fused sparse conv of a batch-4 predict held against the pair
+    it replaced (``check_spread_conv``) and timed beside its bound, that
+    pair and the copy-free pair, with the share of (tile, offset) pairs
+    it skips; what the conv's forward runs on the card (profiled: the
+    fused kernel alone, no product or copy); every ``segment_paint``
+    call held against its plain version (as ``check_paint`` holds it,
+    its bits compared too); the device-resident predict at batch 4 and 1
+    timed. Returns the launches of a predict."""
     import torch
     from lisec_tpu_torch.api import build_model, load_config
     from lisec_tpu_torch.data.wire import pack_points_q16
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
-    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
+    from lisec_tpu_torch.ops.sparse_conv import sparse_conv3d_spread
     cfg = load_config(CENTERPOINT_CFG)
     pipe = build_model(cfg)
     load_centerpoint_weights(pipe)
@@ -1971,23 +2270,49 @@ def phase_centerpoint_serving():
     calls = {}
     with recorded_segment_calls(calls), torch.no_grad():
         pipe.predict(batch)
-    spreads, paints = calls["spread_accumulate"], calls["segment_paint"]
-    if (len(spreads), len(paints)) != (21, 2):
-        raise AssertionError(f"{len(spreads)} spreads, {len(paints)} paints "
-                             "recorded, expected 21 and 2")
-    for i, (vals, targets, num_out, sources) in enumerate(spreads):
-        got = sa.spread_accumulate(vals, targets, num_out=num_out,
-                                   sources=sources)
-        ref = sa.spread_accumulate_reference(vals, targets, num_out=num_out)
-        if not torch.equal(got, ref):
-            raise AssertionError(
-                f"centerpoint spread {i}: {int((got != ref).sum())} "
-                "elements differ from the plain version")
-        emit("kernel_check", kernel="spread_accumulate",
-             case=f"centerpoint_conv{i}", vals=list(vals.shape),
-             dtype=str(vals.dtype), num_out=num_out,
-             inverse_map="given" if sources is not None else "built",
-             bit_equal=True, max_abs_err=0.0)
+    convs, paints = calls["spread_conv"], calls["segment_paint"]
+    if (len(convs), len(paints), len(calls["spread_accumulate"])) != (
+            21, 2, 0):
+        raise AssertionError(
+            f"{len(convs)} fused convs, {len(paints)} paints, "
+            f"{len(calls['spread_accumulate'])} spreads recorded, expected "
+            "21, 2 and 0")
+    rows = []
+    for i, (x, w, targets, num_out, sources) in enumerate(convs):
+        spconv_check(f"centerpoint_conv{i}", x, w, targets, num_out,
+                     sources)
+        rows.append(spread_conv_call_row(x, w, targets, num_out, sources))
+        emit("centerpoint_kernel", kernel="spread_conv", call=i, **rows[-1])
+    summed = {k: sum(r[k] for r in rows) for k in (
+        "ms", "pair_ms", "library_ms", "plain_ms", "bound_ms",
+        "benchmark_bound_ms")}
+    tiles = [r["features"][0] * r["weights"][0]
+             * -(-r["num_out"] // sc.TILE_ROWS) for r in rows]
+    emit("centerpoint_spconv", calls=len(rows), **summed,
+         faster_than_pair=summed["ms"] < summed["pair_ms"],
+         faster_than_library=summed["ms"] < summed["library_ms"],
+         skipped_share=sum(r["skipped_share"] * t
+                           for r, t in zip(rows, tiles)) / sum(tiles),
+         bound_share=summed["bound_ms"] / summed["ms"],
+         benchmark_bound_share=summed["benchmark_bound_ms"] / summed["ms"])
+    # What the conv's forward runs on the card: the fused kernel (and the
+    # invert where it builds its map), no product, GEMM or copy.
+    for i in (1, 5):
+        x, w, targets, num_out, sources = convs[i]
+        ops, kernels = profiled(lambda: sparse_conv3d_spread(
+            x, targets, w, v_out=num_out, sources=sources), 5)
+        names = {kernel_label(k).split("<")[0] for k, _ in kernels
+                 if not k.startswith("lisec.")}
+        want = {"spread_accumulate_kernel_mma"} | (
+            set() if sources is not None else {"spread_invert_kernel"})
+        banned = sorted({o for o in ops if o in (
+            "aten::einsum", "aten::matmul", "aten::mm", "aten::bmm",
+            "aten::copy_", "aten::clone")})
+        if names != want or banned:
+            raise AssertionError(f"centerpoint conv {i}: the forward ran "
+                                 f"{sorted(names)} and {banned}")
+        emit("centerpoint_spconv_profile", call=i, kernels=sorted(names),
+             aten_ops=sorted(set(ops)))
     for i, (vals, ids, num_cells, num_max, _) in enumerate(paints):
         # Whole tables: a split only hands the same table over in parts.
         got = sp.segment_paint(vals, ids, num_cells=num_cells,
@@ -2008,6 +2333,7 @@ def phase_centerpoint_serving():
 # nothing else.
 SUBM_LAUNCHES_PER_BUILD = {"pillar_canvas_fused": 0, "segment_paint": 1,
                            "segment_unpaint": 0, "spread_accumulate": 0,
+                           **NO_SPCONV,
                            "fps": 0, "gather_rows": 0, "scatter_rows": 0,
                            "threefry": 0}
 
@@ -2195,9 +2521,9 @@ def second_stage_ms(pipe, dev, runs=5):
 
 def phase_second_timing(pipe, cfg, config="second_kitti"):
     """SECOND predict at batch 1 and 8 (from host numpy, device-resident,
-    by stage), every ``spread_accumulate`` call of one predict on the
-    tensors the path hands it, and at batch 8 its two ``segment_paint``
-    calls. Returns the batch-8 spread and paint calls."""
+    by stage), every fused sparse conv (``spread_conv``) of one predict
+    on the tensors the path hands it, and at batch 8 its two
+    ``segment_paint`` calls. Returns the batch-8 conv and paint calls."""
     import torch
     from lisec_tpu_torch.api import infer
     rows = {}
@@ -2222,11 +2548,11 @@ def phase_second_timing(pipe, cfg, config="second_kitti"):
         calls = {}
         with recorded_segment_calls(calls), torch.no_grad():
             pipe.predict(dev)
-        rows[b] = ([spread_call_row(*call, timed=b == 8)
-                    for call in calls["spread_accumulate"]],
+        rows[b] = ([spread_conv_call_row(*call, timed=b == 8)
+                    for call in calls["spread_conv"]],
                    [paint_call_row(*call) for call in calls["segment_paint"]]
                    if b == 8 else [])
-        for kernel, per_call in zip(("spread_accumulate", "segment_paint"),
+        for kernel, per_call in zip(("spread_conv", "segment_paint"),
                                     rows[b]):
             for i, call in enumerate(per_call):
                 emit("second_kernel", config=config, kernel=kernel,
@@ -2279,15 +2605,15 @@ def phase_footprint_kernel_check():
     """Every kernel call of one footprint SECOND train step
     (``configs/second_footprint_conv.yaml``, full width, batch 4) against
     its plain version on the very tensors the step hands it: the nine
-    spreads and ten unpaint-source gathers bit for bit, the three paints
-    by ``check_paint``; as shipped, and with ``FOOTPRINT_TRUNCATED``,
-    where every level keeps exactly its budget. Returns the largest |d|
-    by kernel."""
+    fused convs against the pair they replaced (``check_spread_conv``),
+    the ten unpaint-source gathers bit for bit, the three paints by
+    ``check_paint``; as shipped, and with ``FOOTPRINT_TRUNCATED``, where
+    every level keeps exactly its budget. Returns the largest |d| by
+    kernel (the fused conv's from the pair)."""
     import torch
     from lisec_tpu_torch.api import build_model
     from lisec_tpu_torch.data.collate import make_batches
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
-    from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
     worst = dict.fromkeys(SECOND_LAUNCHES_PER_TRAIN_STEP, 0.0)
     counts = {}
     for case, overrides in (("footprint_step", ()),
@@ -2305,26 +2631,15 @@ def phase_footprint_kernel_check():
         with recorded_segment_calls(calls):
             loss_and_grads(pipe, batch)
         n_calls = {k: len(v) for k, v in calls.items()}
-        if n_calls != SECOND_LAUNCHES_PER_TRAIN_STEP:
+        if n_calls != {k: SECOND_LAUNCHES_PER_TRAIN_STEP[k]
+                       for k in n_calls}:
             raise AssertionError(f"{case}: kernel calls {n_calls}")
-        for i, (vals, targets, num_out, sources) in enumerate(
-                calls["spread_accumulate"]):
-            got = sa.spread_accumulate(vals, targets, num_out=num_out,
-                                       sources=sources)
-            torch.cuda.synchronize()
-            ref = sa.spread_accumulate_reference(vals, targets,
-                                                 num_out=num_out)
-            if not torch.equal(got, ref):
-                raise AssertionError(
-                    f"spread_accumulate {case} conv {i}: "
-                    f"{int((got != ref).sum())} elements differ")
-            emit("kernel_check", kernel="spread_accumulate",
-                 case=f"{case}_conv{i}", vals=list(vals.shape),
-                 dtype=str(vals.dtype), num_out=num_out,
-                 inverse_map="given" if sources is not None else "built",
-                 rows_landed=int(((targets >= 0)
-                                  & (targets < num_out)).sum()),
-                 bit_equal=True, max_abs_err=0.0)
+        for i, (x, w, targets, num_out, sources) in enumerate(
+                calls["spread_conv"]):
+            row = spconv_check(f"{case}_conv{i}", x, w, targets, num_out,
+                               sources)
+            worst["spread_conv"] = max(worst["spread_conv"],
+                                       row["max_abs_diff"])
         for i, (vals, ids, nc, num_max, _) in enumerate(
                 calls["segment_paint"]):
             got = sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max)
@@ -2375,7 +2690,7 @@ PARTSEG_SCATTER_SHAPES = ((8192, 128, 512), (1536, 256, 128),
 PARTSEG_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 0, "segment_unpaint": 0,
     "spread_accumulate": 0, "fps": 2, "gather_rows": 4, "scatter_rows": 0,
-    "threefry": 0}
+    "threefry": 0, **NO_SPCONV}
 # A train step adds the gathers' backward and the head's dropout mask.
 PARTSEG_LAUNCHES_PER_TRAIN_STEP = {**PARTSEG_LAUNCHES_PER_PREDICT,
                                    "scatter_rows": 3, "threefry": 1}
@@ -3292,7 +3607,7 @@ RANGESEG_TINY_CFG = os.path.join(ROOT, "configs", "rangeseg_tiny.yaml")
 RANGESEG_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 1, "segment_unpaint": 0,
     "spread_accumulate": 1, "fps": 0, "gather_rows": 0, "scatter_rows": 0,
-    "threefry": 0}
+    "threefry": 0, **NO_SPCONV}
 RANGESEG_LAUNCHES_PER_TRAIN_STEP = {**RANGESEG_LAUNCHES_PER_PREDICT,
                                     "spread_accumulate": 0}
 # Points a cloud: the fixture's, and about one HDL-64E scan.
@@ -3365,7 +3680,7 @@ def phase_rangeseg_kernel_check(pipe, cfg):
             pipe.predict(pipe.device_batch(batch))
         counts = {k: len(v) for k, v in calls.items()}
         if counts != {"segment_paint": 1, "segment_unpaint": 0,
-                      "spread_accumulate": 1}:
+                      "spread_accumulate": 1, "spread_conv": 0}:
             raise AssertionError(f"rangeseg {name}: calls {counts}")
         vals, ids, nc, num_max, split = calls["segment_paint"][0]
         got = sp.segment_paint(vals, ids, num_cells=nc, num_max=num_max)
@@ -3767,7 +4082,8 @@ POINTNET_CLS_TINY_CFG = os.path.join(ROOT, "configs",
 POINTNET2_CLS_CFG = os.path.join(ROOT, "configs", "pointnet2_modelnet40.yaml")
 NO_LAUNCHES = {"pillar_canvas_fused": 0, "segment_paint": 0,
                "segment_unpaint": 0, "spread_accumulate": 0, "fps": 0,
-               "gather_rows": 0, "scatter_rows": 0, "threefry": 0}
+               "gather_rows": 0, "scatter_rows": 0, "threefry": 0,
+               **NO_SPCONV}
 # A PointNet train step: its head's two dropout masks, nothing else.
 POINTNET_LAUNCHES_PER_TRAIN_STEP = {**NO_LAUNCHES, "threefry": 2}
 # A PointNet2Cls predict: each set abstraction's FPS and grouping (SA1's
@@ -4731,11 +5047,12 @@ THREE_CLASS_CFG = os.path.join(ROOT, "configs",
 VOXEL_BUFFER_LAUNCHES_PER_PREDICT = {
     "pillar_canvas_fused": 0, "segment_paint": 1, "segment_unpaint": 0,
     "spread_accumulate": 0, "fps": 0, "gather_rows": 0, "scatter_rows": 0,
-    "threefry": 0}
+    "threefry": 0, **NO_SPCONV}
 # The voxelizer's paint and the assigner's; no unpaint (autograd's gather
 # is the scatter's backward).
 VOXEL_BUFFER_LAUNCHES_PER_TRAIN_STEP = {
-    "segment_paint": 2, "segment_unpaint": 0, "spread_accumulate": 0}
+    "segment_paint": 2, "segment_unpaint": 0, "spread_accumulate": 0,
+    **NO_SPCONV}
 ENCODER_ONLY = {**VOXEL_BUFFER_LAUNCHES_PER_PREDICT,
                 "pillar_canvas_fused": 1, "segment_paint": 0}
 
@@ -5730,7 +6047,10 @@ def dp_compare(ranks, ref, backend, whole_batch=True):
              other_order_rel_diff={
                  k: abs(noise[1][k] - noise[0][k]) / abs(noise[0][k])
                  for k in ("loss", "grad_norm")}, **held)
-    missing = [k for k, v in under_dp.items() if not v]
+    # The spread's one caller is range seg's predict (the sparse convs
+    # run the fused kernel), which no DP step runs.
+    missing = [k for k, v in under_dp.items()
+               if not v and k != "spread_accumulate"]
     if missing:
         raise AssertionError(f"dp: no launch of {missing} under DP")
 
@@ -6048,6 +6368,7 @@ def main() -> int:
     from lisec_tpu_torch.ops.cuda import segment_paint as sp
     from lisec_tpu_torch.ops.cuda import segment_unpaint as su
     from lisec_tpu_torch.ops.cuda import spread_accumulate as sa
+    from lisec_tpu_torch.ops.cuda import spread_conv as sc
     from lisec_tpu_torch.ops.cuda import threefry as tf
     from lisec_tpu_torch.weights import load_weights_npz
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6261,24 +6582,40 @@ def main() -> int:
                 vb_train[3][name] / TRAIN_STEPS,
             "voxel_buffer_train_step": summed(vb_train_rows[name])
             if vb_train_rows[name] else None})
-    # The spread kernel: the nine calls of one SECOND predict at batch 8
-    # together; the nine of a train step at batch 4 beside them.
+    # The spread kernel: range seg's kNN delivery is its caller on the
+    # main paths; its checks on SECOND's rulebooks (random streams) beside
+    # it.
     name = sa.KERNEL_INFO["name"]
     kernels.append({
-        **sa.KERNEL_INFO, "launches": second_launches[name],
-        "max_abs_err": spread_err, **summed(second_calls),
+        **sa.KERNEL_INFO, "launches": rangeseg_launches[name],
+        "max_abs_err": max(spread_err, fp_spread_err),
+        "launches_per_second_predict": second_launches[name],
+        "launches_per_second_train_step":
+            second_train[3][name] / TRAIN_STEPS,
+        **rangeseg(name)})
+    # The sparse convs' fused kernel: the nine calls of one SECOND predict
+    # at batch 8 together; the nine of a train step at batch 4 and the
+    # footprint variant's beside them; the largest difference from the
+    # pair it replaced over every check, as a share of its tolerance.
+    name = sc.KERNEL_INFO["name"]
+    kernels.append({
+        **sc.KERNEL_INFO, "launches": second_launches[name],
+        "checks": len(SPCONV_CHECKS),
+        "largest_share_of_tolerance": max(
+            r["largest_share_of_tolerance"] for r in SPCONV_CHECKS),
+        **summed(second_calls),
         "launches_per_predict": second_launches[name],
+        "invert_launches_per_predict": second_launches["spread_invert"],
         "launches_per_train_step": second_train[3][name] / TRAIN_STEPS,
         **written(name),
         "calls": second_calls,
         "second_train_step": summed(second_train_rows[name]),
         "launches_per_footprint_predict": fp_launches[name],
         "launches_per_footprint_train_step": fp_train[3][name] / TRAIN_STEPS,
-        "footprint_max_abs_err": max(fp_spread_err, fp_step_err[name]),
+        "footprint_max_abs_diff_from_pair": fp_step_err[name],
         "footprint_predict": summed(fp_calls),
         "footprint_calls": fp_calls,
-        "footprint_train_step": summed(fp_train_rows[name]),
-        **rangeseg(name)})
+        "footprint_train_step": summed(fp_train_rows[name])})
     # The point kernels: FPS and the gathers as the calls of one PointNet++
     # predict at batch 16 together, the scatters as the three of one train
     # step at batch 16 (the gathers' backward). The calls of a PointNet2Cls
@@ -6355,8 +6692,8 @@ def main() -> int:
 CARD = ""
 
 def centerpoint_main() -> int:
-    """``--centerpoint``: the build and phase 5's CenterPoint serving
-    alone."""
+    """``--centerpoint``: the build, the fused sparse conv's edge cases
+    and phase 5's CenterPoint serving alone."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -6368,6 +6705,7 @@ def centerpoint_main() -> int:
     global CARD
     CARD = card()
     phase_build()
+    phase_spread_conv_edges(torch.Generator().manual_seed(0))
     phase_centerpoint_serving()
     print(CARD)
     return 0

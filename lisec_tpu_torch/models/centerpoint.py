@@ -17,7 +17,7 @@ as cos and sin, velocity, heatmap), each a 3x3 conv + BatchNorm + ReLU
 and a 3x3 conv to its outputs.
 
 Every sparse conv runs as SECOND's do (``models/second.py::SparseConv3D``:
-a scatter rulebook and the ``spread_accumulate`` kernel), with the tap
+a scatter rulebook and the fused sparse-conv kernel), with the tap
 count and the output set of its own kernel, stride and padding
 (``ops/sparse_conv.py``); the voxel list reaches its dense grid through
 the paint kernel (``segment_sum_dense``). Voxel-list budgets per level

@@ -5,8 +5,8 @@ Small voxels, mean-VFE, a sparse 3D middle encoder (submanifold and
 strided sparse convs, 8x downsample) with a dense masked tail, flatten-z
 to BEV, then the BEV backbone and anchor head PointPillars uses. Every
 sparse conv is a scatter rulebook plus ``sparse_conv3d_spread``
-(``lisec_tpu_torch/ops/sparse_conv.py``), which runs the
-``spread_accumulate`` kernel; the voxel list is laid onto its dense grid
+(``lisec_tpu_torch/ops/sparse_conv.py``), which runs the fused
+sparse-conv kernel (``ops/cuda/spread_conv.py``); the voxel list is laid onto its dense grid
 by the paint kernel (``segment_sum_dense``). Voxel-list budgets per level
 are static config. The JAX package pads every level to one row count and
 channel width so that its convs share one compiled kernel; nothing here

@@ -9,8 +9,10 @@ real. The integers these functions return (coords, counts, rulebooks)
 equal the JAX package's exactly.
 
 The convolution is evaluated scatter-form: one matrix product per kernel
-offset, then ``spread_accumulate`` (``lisec_tpu_torch/ops/cuda/``) routes
-each product row to its output voxel and adds the offsets up. Its
+offset, each product row routed to its output voxel and the offsets
+added up. On the card ``spread_conv`` (``lisec_tpu_torch/ops/cuda/``)
+does all of it in one kernel, reading the rulebook's inverse; on the CPU
+its plain version runs the two steps, ``einsum`` and the spread. Its
 gradient is written out as an ``autograd.Function`` whose row gather is
 the unpaint kernel. The gather form (``build_rulebook``,
 ``sparse_conv3d``) is the plain oracle the tests hold it against.
@@ -26,7 +28,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from lisec_tpu_torch.ops.cuda.segment_unpaint import segment_unpaint
-from lisec_tpu_torch.ops.cuda.spread_accumulate import spread_accumulate
+from lisec_tpu_torch.ops.cuda.spread_conv import spread_conv
+from lisec_tpu_torch.utils.profiling import span
 
 
 class SparseConvSpec(NamedTuple):
@@ -269,7 +272,7 @@ def build_subm_scatter_rulebook(coords: torch.Tensor, num: torch.Tensor,
 def submanifold_sources(out_of: torch.Tensor) -> torch.Tensor:
     """The inverse of a submanifold conv's scatter rulebook, (B, K, V)
     int32: entry [b, k, t] the input row that lands on output row t under
-    offset k, or -1; what ``spread_accumulate`` takes as ``sources``.
+    offset k, or -1; what ``spread_conv`` takes as ``sources``.
 
     For a 3x3x3 kernel with stride 1, padding 1 and the output set equal
     to the input set, the offsets in lexicographic {0, 1, 2}^3 order give
@@ -283,12 +286,11 @@ def submanifold_sources(out_of: torch.Tensor) -> torch.Tensor:
 class _SpreadConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, weights, out_of, v_out, sources):
-        # One product per offset, accumulated in f32 and stored in the
-        # features' dtype (bf16 streams stay bf16), then one spread.
-        z = torch.einsum("bvc,kcd->bkvd", features, weights)
+        # Each offset's product accumulated in f32 and rounded to the
+        # features' dtype, the offsets added in f32 in k order.
         ctx.save_for_backward(features, weights, out_of)
-        return spread_accumulate(z.contiguous(), out_of, num_out=v_out,
-                                 sources=sources)
+        return spread_conv(features, weights, out_of, num_out=v_out,
+                           sources=sources)
 
     @staticmethod
     def backward(ctx, g):
@@ -314,13 +316,14 @@ def sparse_conv3d_spread(features: torch.Tensor, out_of: torch.Tensor,
     features (B, V_in, Cin) f32 or bf16; out_of (B, K, V_in) int32 scatter
     rulebook; weights (K, Cin, Cout) of the features' dtype; sources, where
     the caller holds it, the rulebook's inverse (B, K, v_out) int32
-    (:func:`submanifold_sources`), handed to the spread. Returns
+    (:func:`submanifold_sources`), handed to the kernel. Returns
     (B, v_out, Cout) f32. Differentiable in features and weights."""
-    if features.dtype != weights.dtype:
-        raise ValueError(f"features are {features.dtype}, weights "
-                         f"{weights.dtype}")
-    return _SpreadConv.apply(features, weights, out_of.contiguous(), v_out,
-                             sources)
+    args = (features.contiguous(), weights.contiguous(),
+            out_of.contiguous(), v_out, sources)
+    if not features.is_cuda:
+        return _SpreadConv.apply(*args)
+    with span("spconv", features.device):   # on the card only
+        return _SpreadConv.apply(*args)
 
 
 def sparse_conv3d(features: torch.Tensor, rulebook: torch.Tensor,

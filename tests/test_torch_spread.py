@@ -476,3 +476,152 @@ def test_spread_accumulate_refuses_a_bad_sources(bad):
         sources = sources.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         spread_accumulate(vals, targets, num_out=num_out, sources=sources)
+
+
+# -- the fused conv's wrapper (``ops/cuda/spread_conv.py``) -------------------
+
+# (kernel, stride, padding) of the fused conv's cases: 3 x 3 x 3 and
+# conv_out's 3 x 1 x 1, each submanifold and strided.
+FUSED_GEOMETRY = {
+    ("subm", 27): SUBM,
+    ("down", 27): DOWN,
+    ("subm", 3): ((3, 1, 1), (1, 1, 1), (1, 0, 0)),
+    ("down", 3): ((3, 1, 1), (2, 1, 1), (0, 0, 0)),
+}
+FUSED_COUT = {4: 16, 5: 16, 16: 16, 32: 64, 64: 128, 128: 128}
+
+
+def _fused_case(kind, k, cin, seed=17):
+    """A batch of two clouds on ``GRID``: features (B, V, Cin) f32 with
+    zero padding rows, weights (K, Cin, Cout), the scatter rulebook, its
+    inverse (by hand), the output rows and the gather-form rulebooks."""
+    rng = np.random.default_rng(seed + cin + k)
+    b, v = 2, 64
+    coords, num = _voxel_lists(rng, b, v, GRID, [50, 37])
+    spec = psc.SparseConvSpec(*FUSED_GEOMETRY[kind, k], GRID)
+    if kind == "subm":
+        out_c, out_n = _t(coords), _t(num)
+    else:
+        out_c, out_n = psc.build_output_coords(_t(coords), _t(num), spec,
+                                               max_out=96)
+    srb = psc.build_scatter_rulebook(_t(coords), _t(num), out_c, out_n, spec)
+    v_out = out_c.shape[1]
+    feats = rng.normal(size=(b, v, cin)).astype(np.float32)
+    feats[np.arange(v)[None] >= num[:, None]] = 0.0
+    w = (rng.normal(size=(k, cin, FUSED_COUT[cin]))
+         / np.sqrt(cin)).astype(np.float32)
+    gather = [psc.build_rulebook(_t(coords[i]), _t(num[i]), out_c[i],
+                                 out_n[i], spec) for i in range(b)]
+    sources = _t(_inverse_np(srb.numpy(), v_out))
+    assert (srb >= 0).sum() > 0
+    return _t(feats), _t(w), srb, sources, v_out, gather
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,k", sorted(FUSED_GEOMETRY))
+def test_spread_conv_cpu_route_is_the_pair_bit_for_bit(kind, k, dtype):
+    """On a CPU tensor the fused wrapper computes the pair the sparse
+    conv ran before it, ``einsum`` then the spread, bit for bit, with
+    and without the inverse map; and so does the conv's ``Function``."""
+    from lisec_tpu_torch.ops.cuda.spread_conv import spread_conv
+    feats, w, srb, sources, v_out, _ = _fused_case(kind, k, 16)
+    feats, w = feats.to(getattr(torch, dtype)), w.to(getattr(torch, dtype))
+    z = torch.einsum("bvc,kcd->bkvd", feats, w)
+    pair = spread_accumulate(z.contiguous(), srb, num_out=v_out)
+    for given in (None, sources):
+        got = spread_conv(feats, w, srb, num_out=v_out, sources=given)
+        assert got.dtype == torch.float32
+        assert got.shape == (2, v_out, w.shape[2])
+        assert torch.equal(got, pair)
+        assert torch.equal(psc.sparse_conv3d_spread(
+            feats, srb, w, v_out=v_out, sources=given), pair)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin", sorted(FUSED_COUT))
+@pytest.mark.parametrize("kind,k", sorted(FUSED_GEOMETRY))
+def test_spread_conv_plain_version_equals_the_gather_oracle(kind, k, cin,
+                                                            dtype):
+    """The fused kernel's plain version against the gather form, cloud by
+    cloud, with and without the inverse map: in bf16 each tap's product
+    is rounded once and the oracle's sum once, 2^-7 of the largest
+    element; in f32 the two sum exact products in other orders, 2e-5."""
+    from lisec_tpu_torch.ops.cuda.spread_conv import (
+        spread_conv, spread_conv_reference)
+    feats, w, srb, sources, v_out, gather = _fused_case(kind, k, cin)
+    feats, w = feats.to(getattr(torch, dtype)), w.to(getattr(torch, dtype))
+    oracle = torch.stack([psc.sparse_conv3d(feats[i], rb, w).float()
+                          for i, rb in enumerate(gather)])
+    tol = (2.0 ** -7 if dtype == "bfloat16" else 2e-5) * float(
+        oracle.abs().max())
+    assert float(oracle.abs().max()) > 0
+    for given in (None, sources):
+        got = spread_conv_reference(feats, w, srb, num_out=v_out,
+                                    sources=given)
+        assert torch.equal(got, spread_conv(feats, w, srb, num_out=v_out,
+                                            sources=given))
+        np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("bad", [
+    "features_dtype", "mixed_dtypes", "weights_cin", "features_rank",
+    "targets_dtype", "targets_shape", "features_strided", "weights_strided",
+    "targets_strided", "sources_shape", "sources_dtype", "sources_strided",
+    "sources_device", "cin_too_wide", "cout_too_wide", "too_many_taps"])
+def test_spread_conv_refuses_what_the_kernel_does_not_take(bad):
+    from lisec_tpu_torch.ops.cuda.spread_conv import spread_conv
+    b, v, cin, k, cout, num_out = 2, 10, 8, 3, 16, 8
+    feats = torch.zeros((b, v, cin))
+    w = torch.zeros((k, cin, cout))
+    targets = torch.full((b, k, v), -1, dtype=torch.int32)
+    sources = None
+    if bad == "features_dtype":
+        feats = feats.double()
+    elif bad == "mixed_dtypes":
+        feats = feats.bfloat16()
+    elif bad == "weights_cin":
+        w = torch.zeros((k, cin + 1, cout))
+    elif bad == "features_rank":
+        feats = feats[None]
+    elif bad == "targets_dtype":
+        targets = targets.long()
+    elif bad == "targets_shape":
+        targets = targets[:, :, :-1].contiguous()
+    elif bad == "features_strided":
+        feats = torch.zeros((b, cin, v)).transpose(1, 2)
+    elif bad == "weights_strided":
+        w = torch.zeros((k, cout, cin)).transpose(1, 2)
+    elif bad == "targets_strided":
+        targets = torch.full((b, v, k), -1, dtype=torch.int32).transpose(1, 2)
+    elif bad.startswith("sources"):
+        sources = torch.full((b, k, num_out), -1, dtype=torch.int32)
+        if bad == "sources_shape":
+            sources = sources[:, :, :-1].contiguous()
+        elif bad == "sources_dtype":
+            sources = sources.long()
+        elif bad == "sources_strided":
+            sources = torch.full((b, num_out, k), -1,
+                                 dtype=torch.int32).transpose(1, 2)
+        else:
+            sources = sources.to("meta")
+    elif bad == "cin_too_wide":
+        feats, w = torch.zeros((b, v, 129)), torch.zeros((k, 129, cout))
+    elif bad == "cout_too_wide":
+        w = torch.zeros((k, cin, 129))
+    else:
+        w = torch.zeros((65, cin, cout))
+        targets = torch.full((b, 65, v), -1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        spread_conv(feats, w, targets, num_out=num_out, sources=sources)
+
+
+def test_skipped_share_counts_the_tiles_an_offset_names_no_row_of():
+    from lisec_tpu_torch.ops.cuda.spread_conv import TILE_ROWS, skipped_share
+    # 2 clouds, 3 offsets, two tiles and a ragged third: 18 pairs.
+    in_of = torch.full((2, 3, 2 * TILE_ROWS + 5), -1, dtype=torch.int32)
+    in_of[0, 0, 3] = 7                                # tile 0
+    in_of[0, 2, 2 * TILE_ROWS + 4] = 1                # the ragged tile
+    in_of[1, 1, TILE_ROWS:2 * TILE_ROWS] = 0          # all of tile 1
+    assert skipped_share(in_of) == pytest.approx(15 / 18)
+    assert skipped_share(torch.zeros((1, 2, 3), dtype=torch.int32)) == 0.0
